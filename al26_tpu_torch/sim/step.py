@@ -1,0 +1,447 @@
+"""The simulation step (torch port of the single-device part of
+al26_tpu.sim.step).
+
+Re-design of `evolve_simulation` (al26_nbody.py:704-1113). Order of
+operations follows the reference exactly:
+
+  1. masks + virial radius from the state at step start (:767-770)
+  2. N-body advance by the fixed outer dt (:786, :833)
+  3. stellar evolution update -> new masses + wind rates (:841, :871-876)
+  4. wind deposition, global + local mixing models (:883-941)
+  5. supernova detection + disc injection (:943-967)
+  6. AGB interloper deposition (:969-1028)
+  7. radioactive decay (:1045-1068)
+  8. disc condensation / death (:1070-1086)
+
+Data-dependent events (SNe, disc death, interloper proximity) are masks;
+shapes never change. The step runs eagerly on the state's device; on the
+kernel path (force_impl="pallas", or "auto" on a CUDA device in f32) the
+full sweeps and the fast-group row sweeps go through the CUDA kernels of
+ops.cuda_nbody, and the closing sweep of each step is carried into the
+next as a mass-delta-corrected force cache.
+
+Not ported yet, and raising NotImplementedError with their ROADMAP item:
+the device-mesh backends ("sharded", "ring", any mesh), the Barnes-Hut
+tier ("tree"), the gravity stride (gravity_stride > 1 where it would
+engage) and the trajectory runners.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..config import SimConfig
+from ..models.stellar import evolution as stellar
+from ..models.stellar.common import interp
+from ..ops import cuda_nbody
+from ..ops import deposition as dep
+from ..ops.integrators import advance
+from ..ops.nbody import mass_delta_correction, virial_radius
+from ..state import CH_AGB, CH_GLOBAL, CH_LOCAL, CH_SNE, SimState
+from ..units import G_INTERNAL
+from .init import SimAux
+
+_MESH_TODO = ("ROADMAP queue 1, the multi-device axes "
+              "(parallel/sharded.py, ring.py, tree_mesh.py)")
+_TREE_TODO = ("ROADMAP queue 1, the tree tier, and queue 2, item 3 "
+              "(ops/tree.py, ops/pallas_tree.py)")
+_LADDER_TODO = ("ROADMAP queue 1, the opt-in ladder (gravity_stride, "
+                "trajectory runners)")
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+def _check_backend(mesh, force_impl: str) -> None:
+    if mesh is not None or force_impl in ("sharded", "ring"):
+        raise _not_ported(f"force_impl={force_impl!r} with a device mesh",
+                          _MESH_TODO)
+    if force_impl == "tree":
+        raise _not_ported("force_impl='tree'", _TREE_TODO)
+    if force_impl not in ("auto", "pallas", "default"):
+        raise ValueError(f"unknown force_impl: {force_impl}")
+
+
+def _agb_rates(aux: SimAux, t_interloper):
+    """Interpolate the AGB wind rate grids at the interloper clock; zero
+    outside the tabulated range (al26_nbody.py:535-562)."""
+    t = aux.agb_grid_t
+    inside = (t_interloper >= t[0]) & (t_interloper <= t[-1])
+    x = t_interloper.reshape(1)
+    r_al = interp(x, t, aux.agb_grid_rates[0])[0] * inside
+    r_fe = interp(x, t, aux.agb_grid_rates[1])[0] * inside
+    return r_al, r_fe
+
+
+def _build_force_fn(mass, eps2, cfg: SimConfig, mesh, force_impl: str):
+    """Select the pairwise force backend: (force_fn, acc_fn).
+
+    auto    -> the CUDA kernels on a CUDA device in f32
+               (cuda_nbody.use_kernel), else the integrator default
+               (dense <= 2048, row-chunked above).
+    pallas  -> the direct-sum kernels (ops.cuda_nbody; the name is the
+               JAX package's config value, kept interchangeable).
+    default -> the integrator default (plain torch).
+    The caller (_step_impl) has checked the backend (_check_backend)."""
+    if force_impl == "auto":
+        force_impl = ("pallas" if cuda_nbody.use_kernel(
+            mass.shape[0], mass.dtype, mass.device) else "default")
+    if force_impl == "default":
+        return None, None
+    return (cuda_nbody.make_pallas_force(mass, eps2),
+            cuda_nbody.make_pallas_acc(mass, eps2))
+
+
+def _build_force_rows_fn(mass, eps2, force_impl_resolved):
+    if force_impl_resolved == "pallas":
+        return cuda_nbody.make_pallas_force_rows(mass, eps2)
+    return None
+
+
+def _build_rows_at_factory(mass, eps2, pallas_here: bool):
+    """Predicted-columns subcycle backend (kernel 2): the per-substep
+    K x N row sweep predicts its columns in the kernel from the step-start
+    state (the fast-column override is restored exactly via
+    ops.integrators._fast_override_delta)."""
+    if not pallas_here:
+        return None
+
+    def factory(pos, vel, a0, j0):
+        return cuda_nbody.make_pred_force_rows(pos, vel, a0, j0, mass,
+                                               float(eps2))
+
+    return factory
+
+
+def _sweep_eval_fn(cfg: SimConfig, mesh, force_impl: str, mass,
+                   needs_jerk: bool):
+    """Full fused sweep `(pos, vel) -> (acc, jerk, pot)` through kernel 1:
+    the ONE place the sweep conventions (cfg.eps2 force softening,
+    _pot_eps2 virial softening, with_jerk) live — _step_impl and
+    fresh_cache both build their evaluations here."""
+    _check_backend(mesh, force_impl)
+
+    def sweep_eval(p, v):
+        return cuda_nbody.kernel_acc_jerk_pot(p, v, mass, cfg.eps2,
+                                              with_jerk=needs_jerk,
+                                              pot_eps2=_pot_eps2(cfg))
+
+    return sweep_eval
+
+
+def _corrected_cache(new_cluster, old_cluster, aux: SimAux, cfg: SimConfig,
+                     mesh, pos, vel, a1, j1, pot1):
+    """Shared cache epilogue: correct the closing (acc, jerk, pot)
+    evaluation for this step's source-mass changes (forces are linear in
+    source masses — O(N x M) instead of a fresh O(N^2) sweep) and return
+    the next step's opening cache."""
+    eps2 = torch.as_tensor(cfg.eps2, dtype=pos.dtype, device=pos.device)
+    dm = (new_cluster.mass[aux.msrc_idx]
+          - old_cluster.mass[aux.msrc_idx]) * aux.msrc_valid
+    a1, j1, pot1 = mass_delta_correction(
+        a1, j1, pot1, pos, vel, aux.msrc_idx, dm, eps2,
+        pot_softened=cfg.softened_virial,
+    )
+    return a1, torch.zeros_like(a1) if j1 is None else j1, pot1
+
+
+def _pot_eps2(cfg: SimConfig):
+    """Potential softening for the per-step sweep: the reference computes
+    the virial radius from the RAW potential (AMUSE virial_radius,
+    al26_nbody.py:767-770); cfg.softened_virial uses the BHTree-softened
+    one instead."""
+    return None if cfg.softened_virial else 1e-30
+
+
+def _resolve_integ(cfg: SimConfig, n: int) -> str:
+    """Defensive "auto" resolution for callers that bypass init_cluster's
+    resolve_integrator (e.g. a cfg recreated from a dict)."""
+    if cfg.integrator == "auto":
+        return "hermite4" if n <= 8192 else "hermite4_block"
+    return cfg.integrator
+
+
+def _pallas_here(cfg: SimConfig, n, dtype, device, mesh, force_impl) -> bool:
+    """Does this step run on the direct-sum kernel path?"""
+    return force_impl == "pallas" or (
+        force_impl == "auto" and mesh is None
+        and cuda_nbody.use_kernel(n, dtype, device)
+    )
+
+
+def _cacheable(cfg: SimConfig, n, dtype, device, mesh, force_impl) -> bool:
+    """Can the closing force evaluation be carried to the next step?
+    (leapfrog's closing eval is at the final positions exactly;
+    hermite4's and hermite4_block's under P(EC) semantics.)"""
+    integ = _resolve_integ(cfg, n)
+    if not getattr(cfg, "force_cache", True):
+        return False
+    # natal kicks change velocities outside the advance: the Hermite
+    # integrators' cached JERK is velocity-dependent
+    if cfg.natal_kicks and integ in ("hermite4", "hermite4_block"):
+        return False
+    if integ not in ("leapfrog", "hermite4", "hermite4_block"):
+        return False
+    return _pallas_here(cfg, n, dtype, device, mesh, force_impl)
+
+
+def _step_impl(state: SimState, aux: SimAux, cfg: SimConfig,
+               mesh, force_impl: str, cache, want_cache: bool = True):
+    """One physics step; `cache` (acc, jerk, pot at the state's positions,
+    with the PREVIOUS step's source masses already corrected to the current
+    ones) replaces the opening O(N^2) sweep, and when caching is possible a
+    new cache is returned with the step's closing evaluation."""
+    _check_backend(mesh, force_impl)
+    c = state.cluster
+    dtype, device = c.pos.dtype, c.pos.device
+    dt = torch.as_tensor(cfg.dt, dtype=dtype, device=device)
+    eps2 = torch.as_tensor(cfg.eps2, dtype=dtype, device=device)
+
+    integ = _resolve_integ(cfg, c.n)
+    pallas_here = _pallas_here(cfg, c.n, dtype, device, mesh, force_impl)
+    cache_ok = want_cache and _cacheable(cfg, c.n, dtype, device, mesh,
+                                         force_impl)
+
+    # -- 1. cluster virial radius from the step-start state (:767-770) ------
+    # On the kernel path the SAME sweep yields the integrator's step-start
+    # forces (softened, cfg.eps2) and the UNsoftened potential the virial
+    # radius needs; with a cache, that sweep is the previous step's
+    # closing evaluation.
+    init_eval = None
+    needs_jerk = integ in ("hermite4", "hermite4_block")
+    sweep_eval = None
+    if pallas_here:
+        sweep_eval = _sweep_eval_fn(cfg, mesh, force_impl, c.mass,
+                                    needs_jerk)
+        a0, j0, pot = cache if cache is not None else sweep_eval(c.pos,
+                                                                 c.vel)
+        u = 0.5 * torch.sum(c.mass * pot)
+        init_eval = (a0, j0) if needs_jerk else (a0, None)
+        mtot = torch.sum(c.mass)
+        r_vir = -G_INTERNAL * mtot * mtot / (2.0 * u)
+    else:
+        r_vir = virial_radius(c.pos, c.mass)
+    pos_old = c.pos
+
+    # -- 2. N-body advance ---------------------------------------------
+    force_fn, acc_fn = _build_force_fn(c.mass, cfg.eps2, cfg, mesh,
+                                       force_impl)
+    force_rows_fn = None
+    rows_at_factory = None
+    if integ == "hermite4_block":
+        # the fast-group subcycle stays EXACT (K x N row sweeps)
+        force_rows_fn = _build_force_rows_fn(
+            c.mass, cfg.eps2, "pallas" if pallas_here else "default"
+        )
+        rows_at_factory = _build_rows_at_factory(c.mass, cfg.eps2,
+                                                 pallas_here)
+    final_eval_fn = None
+    if cache_ok:
+        def final_eval_fn(p, v):
+            a, j, pot = sweep_eval(p, v)
+            return a, (j if needs_jerk else None), pot
+
+    out = advance(
+        c.pos, c.vel, c.mass, dt,
+        integrator=integ, eta=cfg.eta_hermite,
+        n_sub=cfg.leapfrog_n_sub or 16,
+        eps2=eps2, max_substeps=cfg.substeps_max, force_fn=force_fn,
+        acc_fn=acc_fn, k_fast=cfg.k_fast or 0,
+        force_rows_fn=force_rows_fn, init_eval=init_eval,
+        final_eval_fn=final_eval_fn, k_ultra=cfg.k_ultra,
+        force_rows_at_factory=rows_at_factory,
+    )
+    if cache_ok:
+        pos, vel, (a1, j1, pot1) = out
+    else:
+        pos, vel = out
+    new_state = physics_after_advance(state, aux, cfg, pos_old, pos, vel,
+                                      r_vir)
+    new_cache = None
+    if cache_ok:
+        # the cached (a1, j1, pot1) was evaluated at the last substep's
+        # PREDICTED state (P(EC)) while the correction uses the corrected
+        # (pos, vel): exact linear-in-mass up to the P(EC) displacement
+        new_cache = _corrected_cache(new_state.cluster, c, aux, cfg, mesh,
+                                     pos, vel, a1, j1, pot1)
+    return new_state, new_cache
+
+
+def step(state: SimState, aux: SimAux, cfg: SimConfig,
+         mesh=None, force_impl: str = "auto") -> SimState:
+    """One physics step without the force cache."""
+    new_state, _ = _step_impl(state, aux, cfg, mesh, force_impl, None,
+                              want_cache=False)
+    return new_state
+
+
+def fresh_cache(state: SimState, cfg: SimConfig, integ: str, mesh=None,
+                force_impl: str = "auto"):
+    """Opening (acc, jerk, pot) evaluation to seed the force cache."""
+    c = state.cluster
+    needs_jerk = integ in ("hermite4", "hermite4_block")
+    return _sweep_eval_fn(cfg, mesh, force_impl, c.mass, needs_jerk)(
+        c.pos, c.vel
+    )
+
+
+def physics_after_advance(state: SimState, aux: SimAux, cfg: SimConfig,
+                          pos_old, pos, vel, r_vir) -> SimState:
+    """Steps 3-8 of the physics (everything after the N-body advance):
+    stellar evolution, wind/SN/AGB deposition, decay, condensation."""
+    c = state.cluster
+    dtype, device = c.pos.dtype, c.pos.device
+    t = state.time
+    dt = torch.as_tensor(cfg.dt, dtype=dtype, device=device)
+    t_new = (state.step_count + 1).to(dtype) * dt
+    lm_mask = c.low_mass_mask(cfg.low_mass_min, cfg.low_mass_max)
+
+    # -- 3. stellar evolution (the precomputed f64 phase table) -------------
+    mass_new, mdot_new = stellar.evolve_from_table(
+        aux.stellar_tbl, c.m0, t_new
+    )
+    # the table is f64: cast the result back to the state dtype
+    mass_new = mass_new.to(dtype)
+    mdot_new = mdot_new.to(dtype)
+    # the interloper's mass is pinned (its track is the AGB table)
+    mass_new = torch.where(c.is_interloper, c.mass, mass_new)
+    mdot_new = torch.where(c.is_interloper, 0.0, mdot_new)
+
+    # wind/SN source validity: INITIAL-mass based by default;
+    # sn_parity_mode restores the reference's step-start current-mass gate
+    hm_valid = aux.hm_slot_valid
+    if cfg.sn_parity_mode:
+        hm_valid = hm_valid & (
+            c.mass[aux.hm_idx] >= cfg.high_mass_threshold
+        )
+
+    # -- 4. wind deposition (both isotopes, both mixing models) -------------
+    slr = c.slr.clone()
+    wind_global = dep.wind_deposition(
+        pos, vel, c.r_disk, lm_mask, aux.hm_idx, hm_valid,
+        mdot_new, c.wind_ratio, r_vir, dt, local=False,
+    )
+    wind_local = dep.wind_deposition(
+        pos, vel, c.r_disk, lm_mask, aux.hm_idx, hm_valid,
+        mdot_new, c.wind_ratio,
+        torch.as_tensor(cfg.r_bub_local_wind, dtype=dtype, device=device),
+        dt, local=True,
+    )
+    slr[:, :, CH_GLOBAL] += wind_global
+    slr[:, :, CH_LOCAL] += wind_local
+
+    # -- 5. supernovae ---------------------------------------------------
+    injected, kicked = dep.sn_injection(
+        pos, c.r_disk, lm_mask, aux.hm_idx, hm_valid,
+        mdot_new, c.kicked, c.sn_yield,
+    )
+    slr[:, :, CH_SNE] += injected
+    if cfg.natal_kicks:
+        # one-shot remnant kick at the SN, applied at step end. Padded
+        # slots repeat an index with valid=False and must accumulate
+        # (add zero), hence index_add.
+        newly = kicked[aux.hm_idx] & ~c.kicked[aux.hm_idx] & aux.hm_slot_valid
+        vel = vel.index_add(0, aux.hm_idx.long(),
+                            aux.kick_vel.to(vel.dtype) * newly[:, None])
+
+    # -- 6. interloper ----------------------------------------------------
+    agb_raw = c.agb_raw
+    if cfg.interloper:
+        # the AGB clock uses the PRE-advance time (al26_nbody.py:984)
+        t_int = t - torch.as_tensor(cfg.interloper_offset_time, dtype=dtype,
+                                    device=device)
+        r_al, r_fe = _agb_rates(aux, t_int)
+        active = t_int > 0.0
+        agb_abs = dep.interloper_deposition(
+            pos_old, pos, c.r_disk, lm_mask,
+            interloper_index=-1,
+            rate_26al=r_al * active, rate_60fe=r_fe * active,
+            proximity_radius=0.1,  # pc, al26_nbody.py:1013
+            bubble_radius=torch.as_tensor(cfg.interloper_bubble_radius,
+                                          dtype=dtype, device=device),
+            dt=dt,
+        )
+        slr[:, :, CH_AGB] += agb_abs
+        agb_raw = agb_raw + agb_abs
+
+    # -- 7. decay ---------------------------------------------------------
+    slr = dep.apply_decay(
+        slr, dt, cfg.half_life_26al, cfg.half_life_60fe,
+        decay_agb=cfg.interloper,
+    )
+
+    # -- 8. condensation ----------------------------------------------
+    slr_final, disk_alive = dep.condense(
+        slr, c.slr_final, cfg.interloper, c.tau_disk, c.disk_alive,
+        lm_mask, t_new,
+    )
+
+    cluster = c.replace(
+        pos=pos, vel=vel, mass=mass_new, mdot=mdot_new, kicked=kicked,
+        slr=slr, slr_final=slr_final, agb_raw=agb_raw,
+        disk_alive=disk_alive,
+    )
+    return state.replace(
+        cluster=cluster, time=t_new, step_count=state.step_count + 1
+    )
+
+
+def stride_active(cfg: SimConfig, n, dtype, device, mesh,
+                  force_impl) -> bool:
+    """Would al26_tpu's gravity stride engage here (gravity_stride > 1 on
+    a cache-capable hermite4_block path)?"""
+    return (
+        getattr(cfg, "gravity_stride", 1) > 1
+        and _resolve_integ(cfg, n) == "hermite4_block"
+        and _cacheable(cfg, n, dtype, device, mesh, force_impl)
+    )
+
+
+def run_steps(state: SimState, aux: SimAux, cfg: SimConfig,
+              n_steps: int, mesh=None, force_impl: str = "auto") -> SimState:
+    """`n_steps` physics steps (the reference saves every
+    `steps_per_plot`=10 steps, al26_nbody.py:1754-1760). On the kernel
+    path the closing force evaluation of each step is carried into the
+    next (mass-delta-corrected): ONE full O(N^2) sweep per step."""
+    c = state.cluster
+    if _cacheable(cfg, c.n, c.pos.dtype, c.pos.device, mesh, force_impl):
+        if stride_active(cfg, c.n, c.pos.dtype, c.pos.device, mesh,
+                         force_impl):
+            raise _not_ported("gravity_stride > 1", _LADDER_TODO)
+        cache = fresh_cache(state, cfg, _resolve_integ(cfg, c.n), mesh,
+                            force_impl)
+        state, _ = run_steps_cached(state, cache, aux, cfg, n_steps,
+                                    mesh, force_impl)
+        return state
+    for _ in range(n_steps):
+        state = step(state, aux, cfg, mesh, force_impl)
+    return state
+
+
+def run_steps_cached(state: SimState, cache, aux: SimAux, cfg: SimConfig,
+                     n_steps: int, mesh=None, force_impl: str = "auto"):
+    """run_steps carrying the force cache ACROSS calls: a caller threads
+    (state, cache) between checkpoint chunks so even the first step of a
+    chunk reuses the previous chunk's closing evaluation."""
+    for _ in range(n_steps):
+        state, cache = _step_impl(state, aux, cfg, mesh, force_impl, cache)
+    return state, cache
+
+
+def run_strides_cached(*args, **kwargs):
+    raise _not_ported("run_strides_cached (gravity stride)", _LADDER_TODO)
+
+
+def run_steps_cached_strided(*args, **kwargs):
+    raise _not_ported("run_steps_cached_strided (gravity stride)",
+                      _LADDER_TODO)
+
+
+def run_steps_traj(*args, **kwargs):
+    raise _not_ported("run_steps_traj (interloper trajectory runner)",
+                      _LADDER_TODO)
+
+
+def run_steps_traj_cached(*args, **kwargs):
+    raise _not_ported("run_steps_traj_cached (interloper trajectory "
+                      "runner)", _LADDER_TODO)
