@@ -221,29 +221,29 @@ class SimConfig:
     #   "auto" (the CUDA kernels on a CUDA device in f32, else plain
     #   torch), "pallas" (the direct-sum kernel path: ops.cuda_nbody, the
     #   name kept so config dicts stay interchangeable with al26_tpu) |
-    #   "default" — see sim.step._build_force_fn. "sharded" | "ring" |
-    #   "tree" (the opt-in Barnes-Hut tier) are al26_tpu backends not
-    #   ported yet; sim.step raises NotImplementedError for them. The
-    #   tree knobs below are kept for config round-trips.
+    #   "default" | "tree" (the opt-in Barnes-Hut tier, ops.tree: near
+    #   field through the kernel of ops.cuda_tree on a CUDA device in f32)
+    #   — see sim.step._build_force_fn. "sharded" | "ring" (and a tree
+    #   under a mesh) are al26_tpu backends not ported yet; sim.step and
+    #   sim.init raise NotImplementedError for them.
     tree_theta: float = 0.75           # Barnes-Hut opening angle (the
     #   reference BHTree default, al26_nbody.py:59,1712-1714) for the
     #   conservative geometric block-level MAC.
     tree_mac: str = "geometric"        # "geometric" (BHTree-parity
-    #   opening angle tree_theta) | "relative" (round 5): the Springel
-    #   2005 relative criterion — a node is accepted when its worst-case
-    #   monopole truncation error is < tree_alpha x the target block's
-    #   reference acceleration (the force cache's previous evaluation);
-    #   hermite4_block-only (the reference acceleration rides the force
-    #   cache).
+    #   opening angle tree_theta) | "relative": the Springel 2005 relative
+    #   criterion — a node is accepted when its worst-case monopole
+    #   truncation error is < tree_alpha x the target block's reference
+    #   acceleration (the force cache's opening evaluation). Runs only
+    #   through the force cache on hermite4_block: the cache-seeding sweep
+    #   is exact, and an uncached sim.step.step raises ValueError.
     tree_alpha: float = 3e-3           # relative-MAC tolerance (per-node
     #   truncation error bound as a fraction of |a|)
     tree_leaf: int = 256               # stars per Morton leaf block
     tree_kavg: int = 0                 # near-field budget: pair-list
     #   length = tree_kavg * n_blocks. 0 = auto-size at init from the
     #   initial cluster's measured partner counts (x2 slack,
-    #   sim.init.resolve_integrator); overflow at runtime poisons the
-    #   forces with NaN so utils.validate fails loudly at the next
-    #   checkpoint instead of silently truncating forces.
+    #   sim.init._auto_tree_kavg); overflow at runtime poisons the forces
+    #   with NaN on the device instead of silently truncating them.
 
     @property
     def eps2(self) -> float:

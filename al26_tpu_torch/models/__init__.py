@@ -1,2 +1,1 @@
-# fractal initial conditions are not ported yet (ROADMAP queue 1)
-from . import agb, discs, imf, plummer, yields
+from . import agb, discs, fractal, imf, plummer, yields

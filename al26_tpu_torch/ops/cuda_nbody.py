@@ -12,9 +12,9 @@ shaped):
     subcycle, one launch per substep).
 
 The source is compiled by nvcc for sm_90a at first use into
-`al26_tpu_torch/_build/` (a shared library named after a hash of the
-source, so an edited .cu rebuilds) and bound with ctypes. A missing nvcc
-or a failed build raises; nothing falls back.
+`al26_tpu_torch/_build/` (ops.cuda_build: a shared library named after a
+hash of the source, so an edited .cu rebuilds) and bound with ctypes. A
+missing nvcc or a failed build raises; nothing falls back.
 
 Every wrapper checks device, dtype (f32), shape and contiguity. On a CUDA
 tensor it launches its kernel (or raises); on a CPU tensor it runs the
@@ -33,23 +33,14 @@ NotImplementedError (ROADMAP queue 2).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from typing import Tuple
 
 import torch
 
 from ..units import G_INTERNAL
+from . import cuda_build
 
 LAUNCHES = {"nbody_rows": 0, "nbody_predcols": 0}
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "nbody.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 # must match TB / TJ in csrc/nbody.cu: rows per block, columns per tile
 _TB = 128
@@ -61,7 +52,6 @@ _TARGET_BLOCKS = 4 * 132
 _PLAIN_CHUNK_ELEMS = 1 << 22
 
 _lib = None
-BUILD_LOG = ""
 
 
 def use_kernel(n: int, dtype, device) -> bool:
@@ -75,49 +65,13 @@ def use_kernel(n: int, dtype, device) -> bool:
 # build and bind
 # --------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        cand = os.path.join(home, "bin", "nvcc")
-        if os.path.exists(cand):
-            path = cand
-    if path is None:
-        raise RuntimeError(
-            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
-            "CUDA kernels of al26_tpu_torch are built from csrc/ at first "
-            "use and need the CUDA toolkit"
-        )
-    return path
-
-
-def build() -> str:
-    """Compile csrc/nbody.cu into BUILD_DIR (skipped when the library for
-    this exact source already exists) and return the library's path."""
-    global BUILD_LOG
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    lib_path = os.path.join(BUILD_DIR, f"libal26nbody_{digest}.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}) building {SOURCE}:\n{BUILD_LOG}")
-    os.replace(tmp, lib_path)
-    return lib_path
-
-
 def load():
-    """Build (if needed) and bind the kernels' library, once per process."""
+    """Build csrc/nbody.cu (if needed) and bind its library, once per
+    process."""
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(build())
+    lib = ctypes.CDLL(cuda_build.build("nbody.cu"))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nbody_rows_launch.argtypes = [
         p, p, p, i,           # rows_pos, rows_vel, row_ids, b

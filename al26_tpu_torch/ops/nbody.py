@@ -130,15 +130,22 @@ def acc_jerk_pot_chunked(
     eps2: float | torch.Tensor = 0.0,
     g: float = G_INTERNAL,
     block: int = 1024,
+    *,
+    pot_eps2=None,
+    with_jerk: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """O(N^2) force/jerk/potential with O(N*block) memory: a loop over row
-    blocks (the last one ragged; no padding rows are needed)."""
+    blocks (the last one ragged; no padding rows are needed). `pot_eps2`
+    and `with_jerk` as in _row_block_acc_jerk_pot (the per-row sums do not
+    depend on the blocking)."""
     n = pos.shape[0]
     outs = []
     for s in range(0, n, block):
         idx = torch.arange(s, min(s + block, n), device=pos.device)
         outs.append(_row_block_acc_jerk_pot(pos[idx], vel[idx], pos, vel,
-                                            mass, eps2, g, idx))
+                                            mass, eps2, g, idx,
+                                            pot_eps2=pot_eps2,
+                                            with_jerk=with_jerk))
     acc, jerk, pot = (torch.cat(x, 0) for x in zip(*outs))
     return acc, jerk, pot
 
@@ -251,8 +258,8 @@ def _mass_delta_block(acc, jerk, pot, pos_b, vel_b, targets_b, xs, vs,
     per-row reduction over the M sources is independent of the block
     split."""
     dx = xs[None, :, :] - pos_b[:, None, :]     # [B,M,3]
-    r2 = torch.sum(dx * dx, dim=-1) + eps2      # [B,M]
-    r2 = torch.clamp(r2, min=1e-30)
+    d2 = torch.sum(dx * dx, dim=-1)             # [B,M]
+    r2 = torch.clamp(d2 + eps2, min=1e-30)
     invalid = targets_b[:, None] == src_idx[None, :]        # self pairs
     if group_size > 0:
         invalid = invalid | (torch.div(targets_b[:, None], group_size,
@@ -270,9 +277,10 @@ def _mass_delta_block(acc, jerk, pot, pos_b, vel_b, targets_b, xs, vs,
     if pot_softened:
         pot = pot - g * (invr @ dm)
     else:
-        invr_u = torch.where(invalid, 0.0,
-                             torch.rsqrt(torch.clamp(r2 - eps2, min=0.0)
-                                         + 1e-30))
+        # the raw distance from d2, not the JAX form r2 - eps2: in f32 that
+        # cancels to 0 for d2 below half an ulp of eps2 and the term becomes
+        # dm * 1e15 (a positive potential, a negative virial radius)
+        invr_u = torch.where(invalid, 0.0, torch.rsqrt(d2 + 1e-30))
         pot = pot - g * (invr_u @ dm)
     return acc, jerk, pot
 

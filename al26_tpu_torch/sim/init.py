@@ -2,11 +2,13 @@
 (al26_nbody.py:1492-1610) plus interloper spawning (al26_nbody.py:1448-1490);
 torch port of al26_tpu.sim.init.
 
-Everything here runs once on the host: numpy draws from
+Everything here runs once: numpy draws from
 `np.random.default_rng(cfg.seed)` (so both packages start from the same
-bits) and the stellar-table maths in f64 torch on the CPU. The results are
-then moved to the caller's explicit `device` as a `SimState` plus a
-`SimAux` bundle of fixed-shape auxiliary tensors.
+bits) and the stellar-table maths in f64 torch on the CPU. The two O(N^2)
+pieces, the fractal model's virial scaling and the tree tier's
+near-field budget, run on the caller's explicit `device`. The results
+are moved to that device as a `SimState` plus a `SimAux` bundle of
+fixed-shape auxiliary tensors.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from ..config import SimConfig
 from ..models import agb as agb_mod
 from ..models import discs, imf
+from ..models.fractal import fractal_positions_velocities
 from ..models.plummer import plummer_positions_velocities
 from ..models.stellar import evolution as stellar
 from ..models.yields import feh_for_z, massive_star_yields, read_slrs
@@ -143,18 +146,64 @@ def build_aux(cfg: SimConfig, m0: np.ndarray, dtype,
                 is_interloper)
 
 
+def _resolve_tree_integrator(cfg: SimConfig) -> str:
+    """The tree tier's integrator, with its guards. The tier carries acc
+    AND jerk, so hermite4_block runs over tree forces (one tree sweep per
+    step through the force cache); auto takes the BHTree-parity leapfrog
+    up to 8192 stars and hermite4_block above. The shared-adaptive
+    hermite4 stays refused: it would pay a full tree build and sweep per
+    substep."""
+    if cfg.tree_mac not in ("geometric", "relative"):
+        raise ValueError(
+            f"tree_mac={cfg.tree_mac!r}: 'geometric' or 'relative'")
+    if cfg.mesh_shape is not None:
+        raise NotImplementedError(
+            "force_impl='tree' under a device mesh is not ported yet "
+            "(ROADMAP queue 1, the multi-device axes: parallel/tree_mesh.py)")
+    integ = cfg.integrator
+    if cfg.tree_mac == "relative":
+        # the reference acceleration rides the force cache on the
+        # hermite4_block path (sim.step); leapfrog's interior substeps
+        # carry no acceleration channel to thread it
+        if integ == "auto":
+            integ = "hermite4_block"
+        elif integ != "hermite4_block":
+            raise ValueError(
+                "tree_mac='relative' requires "
+                f"integrator='hermite4_block'; got {integ!r}")
+        if cfg.tree_alpha <= 0.0:
+            raise ValueError(f"tree_alpha={cfg.tree_alpha}: must be > 0")
+        if not cfg.force_cache or cfg.natal_kicks:
+            # without the cache there is no reference acceleration: every
+            # step would need the exact O(N^2) sweep, so refuse instead
+            raise ValueError(
+                "tree_mac='relative' requires the force cache "
+                "(force_cache=True and natal_kicks=False — kicks disable "
+                "the Hermite cache, sim.step._cacheable)")
+    elif integ == "auto":
+        integ = "leapfrog" if cfg.n <= 8192 else "hermite4_block"
+    elif integ not in ("leapfrog", "hermite4_block"):
+        raise ValueError(
+            "force_impl='tree' supports integrator='leapfrog' or "
+            f"'hermite4_block'; got integrator={integ!r}")
+    if not 0.0 < cfg.tree_theta <= 1.0:
+        # the geometric MAC's no-self-interaction argument needs theta <= 1
+        # (ops.tree._check_theta); checked in relative mode too, where
+        # tree_theta still sizes the near-field budget (_auto_tree_kavg)
+        raise ValueError(f"tree_theta={cfg.tree_theta}: must be in (0, 1]")
+    return integ
+
+
 def resolve_integrator(cfg: SimConfig, m_total: float) -> SimConfig:
     """Resolve integrator="auto" (hermite4 up to 8192 stars,
-    hermite4_block above), the BHTree-parity leapfrog substep count
+    hermite4_block above; for force_impl="tree" see
+    _resolve_tree_integrator), the BHTree-parity leapfrog substep count
     (internal dt = 1/64 N-body time unit, al26_nbody.py:59,1712-1714), and
     the block-timestep fast-group size max(256, min(512, n // 128))."""
-    if cfg.force_impl == "tree":
-        raise NotImplementedError(
-            "force_impl='tree' (the Barnes-Hut tier and its near-field "
-            "kernel) is not ported yet (ROADMAP queue 1, the tree tier; "
-            "queue 2, item 3)")
     integ = cfg.integrator
-    if integ == "auto":
+    if cfg.force_impl == "tree":
+        integ = _resolve_tree_integrator(cfg)
+    elif integ == "auto":
         integ = "hermite4" if cfg.n <= 8192 else "hermite4_block"
     n_sub = cfg.leapfrog_n_sub
     if integ == "leapfrog" and n_sub is None:
@@ -167,6 +216,43 @@ def resolve_integrator(cfg: SimConfig, m_total: float) -> SimConfig:
     if integ == "hermite4_block" and k_fast is None:
         k_fast = int(max(256, min(512, cfg.n // 128)))
     return cfg.replace(integrator=integ, leapfrog_n_sub=n_sub, k_fast=k_fast)
+
+
+def _auto_tree_kavg(cfg: SimConfig, pos: np.ndarray, masses: np.ndarray,
+                    dtype, device) -> int:
+    """tree_kavg for tree_kavg = 0, measured on the realised initial
+    positions on the run's device: twice the mean near-field partner
+    count, plus 8, for the drift of a relaxing cluster (runtime overflow
+    past the budget NaN-poisons the forces, ops.tree).
+
+    With tree_mac="relative" the counts at tolerance tree_alpha need a
+    reference acceleration: one exact sweep (kernel 1 on a CUDA device in
+    f32, the plain row-chunked sweep elsewhere). The budget is then the
+    larger of those counts and the geometric ones at tree_theta, the
+    JAX package's rule, so both packages resolve the same tree_kavg."""
+    from ..ops import cuda_nbody
+    from ..ops.nbody import acc_jerk_pot_chunked
+    from ..ops.tree import p2p_partner_counts
+
+    pos_d = torch.as_tensor(pos, dtype=dtype, device=device)
+    mass_d = torch.as_tensor(masses, dtype=dtype, device=device)
+    cnt = p2p_partner_counts(pos_d, mass_d, leaf=cfg.tree_leaf,
+                             theta=cfg.tree_theta)
+    mean = float(cnt.double().mean())
+    if cfg.tree_mac == "relative":
+        zeros = torch.zeros_like(pos_d)
+        if cuda_nbody.use_kernel(len(masses), dtype, device):
+            a_ex, _, _ = cuda_nbody.kernel_acc_jerk_pot(
+                pos_d, zeros, mass_d, cfg.eps2, with_jerk=False,
+                with_pot=False)
+        else:
+            a_ex, _, _ = acc_jerk_pot_chunked(pos_d, zeros, mass_d,
+                                              cfg.eps2, with_jerk=False)
+        aref = torch.sqrt(torch.sum(a_ex * a_ex, dim=-1))
+        cnt_rel = p2p_partner_counts(pos_d, mass_d, leaf=cfg.tree_leaf,
+                                     theta=cfg.tree_alpha, aref=aref)
+        mean = max(float(cnt_rel.double().mean()), mean)
+    return int(2.0 * mean) + 8
 
 
 def init_cluster(cfg: SimConfig, data_dir: str | None = None, *, device):
@@ -206,9 +292,9 @@ def init_cluster(cfg: SimConfig, data_dir: str | None = None, *, device):
     if cfg.model == "plummer":
         pos, vel = plummer_positions_velocities(rng, cfg.n, cfg.rc, m_total)
     elif cfg.model == "fractal":
-        raise NotImplementedError(
-            "model='fractal' is not ported yet (ROADMAP queue 1, "
-            "models/fractal.py)")
+        pos, vel = fractal_positions_velocities(
+            rng, cfg.n, cfg.rc, m_total, cfg.fractal_dimension,
+            device=device, dtype=dtype)
     else:
         raise ValueError(
             'Invalid choice of cluster model, must be either "plummer" or '
@@ -267,6 +353,12 @@ def init_cluster(cfg: SimConfig, data_dir: str | None = None, *, device):
     is_interloper = np.zeros(n_total, bool)
     if cfg.interloper:
         is_interloper[-1] = True
+
+    # -- tree-tier near-field budget (like resolve_integrator: the
+    # resolved literal is what checkpoints record)
+    if resolved.force_impl == "tree" and resolved.tree_kavg == 0:
+        resolved = resolved.replace(tree_kavg=_auto_tree_kavg(
+            resolved, pos, masses, dtype, device))
 
     mdot0 = stellar.wind_mdot(torch.as_tensor(masses),
                               torch.zeros(len(masses), dtype=torch.float64),

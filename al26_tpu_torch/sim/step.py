@@ -18,12 +18,21 @@ shapes never change. The step runs eagerly on the state's device; on the
 kernel path (force_impl="pallas", or "auto" on a CUDA device in f32) the
 full sweeps and the fast-group row sweeps go through the CUDA kernels of
 ops.cuda_nbody, and the closing sweep of each step is carried into the
-next as a mass-delta-corrected force cache.
+next as a mass-delta-corrected force cache. force_impl="tree" (the
+Barnes-Hut tier, ops.tree) makes the full sweeps tree sweeps (near field:
+the kernel of ops.cuda_tree on a CUDA device in f32) while the
+hermite4_block fast-group subcycle stays exact, through the direct-sum
+kernels wherever they run.
+
+Deliberate difference from the JAX package: with tree_mac="relative" the
+relative MAC reaches the integrator only through the force cache, so an
+uncached step() raises ValueError (the JAX package's uncached step
+silently opens geometrically there).
 
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
-the device-mesh backends ("sharded", "ring", any mesh), the Barnes-Hut
-tier ("tree"), the gravity stride (gravity_stride > 1 where it would
-engage) and the trajectory runners.
+the device-mesh backends ("sharded", "ring", any mesh), the gravity
+stride (gravity_stride > 1 where it would engage) and the trajectory
+runners.
 """
 from __future__ import annotations
 
@@ -35,15 +44,15 @@ from ..models.stellar.common import interp
 from ..ops import cuda_nbody
 from ..ops import deposition as dep
 from ..ops.integrators import advance
-from ..ops.nbody import mass_delta_correction, virial_radius
+from ..ops.nbody import (
+    acc_jerk_pot_chunked, mass_delta_correction, virial_radius,
+)
 from ..state import CH_AGB, CH_GLOBAL, CH_LOCAL, CH_SNE, SimState
 from ..units import G_INTERNAL
 from .init import SimAux
 
 _MESH_TODO = ("ROADMAP queue 1, the multi-device axes "
               "(parallel/sharded.py, ring.py, tree_mesh.py)")
-_TREE_TODO = ("ROADMAP queue 1, the tree tier, and queue 2, item 3 "
-              "(ops/tree.py, ops/pallas_tree.py)")
 _LADDER_TODO = ("ROADMAP queue 1, the opt-in ladder (gravity_stride, "
                 "trajectory runners)")
 
@@ -56,9 +65,7 @@ def _check_backend(mesh, force_impl: str) -> None:
     if mesh is not None or force_impl in ("sharded", "ring"):
         raise _not_ported(f"force_impl={force_impl!r} with a device mesh",
                           _MESH_TODO)
-    if force_impl == "tree":
-        raise _not_ported("force_impl='tree'", _TREE_TODO)
-    if force_impl not in ("auto", "pallas", "default"):
+    if force_impl not in ("auto", "pallas", "default", "tree"):
         raise ValueError(f"unknown force_impl: {force_impl}")
 
 
@@ -82,7 +89,16 @@ def _build_force_fn(mass, eps2, cfg: SimConfig, mesh, force_impl: str):
     pallas  -> the direct-sum kernels (ops.cuda_nbody; the name is the
                JAX package's config value, kept interchangeable).
     default -> the integrator default (plain torch).
+    tree    -> the Barnes-Hut tier at the geometric MAC (ops.tree); the
+               relative MAC never comes through here (_step_impl).
     The caller (_step_impl) has checked the backend (_check_backend)."""
+    if force_impl == "tree":
+        from ..ops.tree import make_tree_acc, make_tree_force
+
+        kw = dict(leaf=cfg.tree_leaf, theta=cfg.tree_theta,
+                  kavg=cfg.tree_kavg or 256)
+        return (make_tree_force(mass, cfg.eps2, **kw),
+                make_tree_acc(mass, cfg.eps2, **kw))
     if force_impl == "auto":
         force_impl = ("pallas" if cuda_nbody.use_kernel(
             mass.shape[0], mass.dtype, mass.device) else "default")
@@ -114,12 +130,36 @@ def _build_rows_at_factory(mass, eps2, pallas_here: bool):
 
 
 def _sweep_eval_fn(cfg: SimConfig, mesh, force_impl: str, mass,
-                   needs_jerk: bool):
-    """Full fused sweep `(pos, vel) -> (acc, jerk, pot)` through kernel 1:
-    the ONE place the sweep conventions (cfg.eps2 force softening,
-    _pot_eps2 virial softening, with_jerk) live — _step_impl and
-    fresh_cache both build their evaluations here."""
+                   needs_jerk: bool, tree_aref=None):
+    """Full fused sweep `(pos, vel) -> (acc, jerk, pot)`: kernel 1, or the
+    tree sweep for force_impl="tree" — the ONE place the sweep conventions
+    (cfg.eps2 force softening, _pot_eps2 virial softening, with_jerk) live;
+    _step_impl and fresh_cache both build their evaluations here.
+
+    `tree_aref` [N] (tree tier, tree_mac="relative"): per-star reference
+    acceleration magnitudes — the opening evaluation, carried by the force
+    cache — switching the MAC to the relative criterion at tolerance
+    cfg.tree_alpha. In relative mode the cache-seeding sweep (no previous
+    acceleration yet, tree_aref None) is the EXACT sweep: kernel 1 where it
+    runs, the plain row-block sweep elsewhere. The geometric MAC at
+    cfg.tree_theta serves tree_mac="geometric" only."""
     _check_backend(mesh, force_impl)
+    if force_impl == "tree":
+        if cfg.tree_mac == "relative" and tree_aref is None:
+            if not cuda_nbody.use_kernel(mass.shape[0], mass.dtype,
+                                         mass.device):
+                return lambda p, v: acc_jerk_pot_chunked(
+                    p, v, mass, cfg.eps2, pot_eps2=_pot_eps2(cfg),
+                    with_jerk=needs_jerk)
+            # else: the exact kernel-1 sweep below
+        else:
+            from ..ops.tree import make_tree_sweep
+
+            theta = cfg.tree_theta if tree_aref is None else cfg.tree_alpha
+            return make_tree_sweep(
+                mass, cfg.eps2, leaf=cfg.tree_leaf, theta=theta,
+                kavg=cfg.tree_kavg or 256, pot_eps2=_pot_eps2(cfg),
+                with_jerk=needs_jerk, aref=tree_aref)
 
     def sweep_eval(p, v):
         return cuda_nbody.kernel_acc_jerk_pot(p, v, mass, cfg.eps2,
@@ -157,6 +197,12 @@ def _resolve_integ(cfg: SimConfig, n: int) -> str:
     """Defensive "auto" resolution for callers that bypass init_cluster's
     resolve_integrator (e.g. a cfg recreated from a dict)."""
     if cfg.integrator == "auto":
+        if cfg.force_impl == "tree":
+            # relative MAC: hermite4_block at any n (leapfrog cannot
+            # thread the reference acceleration)
+            if cfg.tree_mac == "relative":
+                return "hermite4_block"
+            return "leapfrog" if n <= 8192 else "hermite4_block"
         return "hermite4" if n <= 8192 else "hermite4_block"
     return cfg.integrator
 
@@ -182,6 +228,10 @@ def _cacheable(cfg: SimConfig, n, dtype, device, mesh, force_impl) -> bool:
         return False
     if integ not in ("leapfrog", "hermite4", "hermite4_block"):
         return False
+    if force_impl == "tree":
+        # leapfrog: closing tree sweep at the final positions exactly;
+        # hermite4_block: P(EC) semantics as on the kernel path
+        return mesh is None
     return _pallas_here(cfg, n, dtype, device, mesh, force_impl)
 
 
@@ -198,19 +248,38 @@ def _step_impl(state: SimState, aux: SimAux, cfg: SimConfig,
     eps2 = torch.as_tensor(cfg.eps2, dtype=dtype, device=device)
 
     integ = _resolve_integ(cfg, c.n)
+    tree_here = force_impl == "tree"
+    if tree_here and integ not in ("leapfrog", "hermite4_block"):
+        # callers of step() can bypass sim.init.resolve_integrator; the
+        # shared-adaptive hermite4 would pay a full tree build and sweep
+        # per substep
+        raise ValueError(
+            "force_impl='tree' supports integrator='leapfrog' or "
+            f"'hermite4_block'; got integrator={integ!r}")
     pallas_here = _pallas_here(cfg, c.n, dtype, device, mesh, force_impl)
     cache_ok = want_cache and _cacheable(cfg, c.n, dtype, device, mesh,
                                          force_impl)
+    if tree_here and cfg.tree_mac == "relative" and not (
+            cache_ok and integ == "hermite4_block"):
+        # the relative MAC's reference acceleration rides the force cache
+        # of the hermite4_block path; anywhere else the integrator's tree
+        # forces would open geometrically, so refuse instead
+        raise ValueError(
+            "force_impl='tree' with tree_mac='relative' runs only through "
+            "the force cache on hermite4_block (run_steps / fresh_cache + "
+            "run_steps_cached, force_cache=True, natal_kicks=False); an "
+            f"uncached step or integrator={integ!r} would silently use "
+            "the geometric MAC")
 
     # -- 1. cluster virial radius from the step-start state (:767-770) ------
-    # On the kernel path the SAME sweep yields the integrator's step-start
-    # forces (softened, cfg.eps2) and the UNsoftened potential the virial
-    # radius needs; with a cache, that sweep is the previous step's
-    # closing evaluation.
+    # On the kernel and tree paths the SAME sweep yields the integrator's
+    # step-start forces (softened, cfg.eps2) and the UNsoftened potential
+    # the virial radius needs; with a cache, that sweep is the previous
+    # step's closing evaluation.
     init_eval = None
     needs_jerk = integ in ("hermite4", "hermite4_block")
     sweep_eval = None
-    if pallas_here:
+    if pallas_here or tree_here:
         sweep_eval = _sweep_eval_fn(cfg, mesh, force_impl, c.mass,
                                     needs_jerk)
         a0, j0, pot = cache if cache is not None else sweep_eval(c.pos,
@@ -229,16 +298,29 @@ def _step_impl(state: SimState, aux: SimAux, cfg: SimConfig,
     force_rows_fn = None
     rows_at_factory = None
     if integ == "hermite4_block":
-        # the fast-group subcycle stays EXACT (K x N row sweeps)
+        # the fast-group subcycle stays EXACT (K x N row sweeps) on every
+        # backend, under the tree tier too: close encounters are where
+        # monopole truncation must not leak in
+        rows_kernel = pallas_here or (tree_here and cuda_nbody.use_kernel(
+            c.n, dtype, device))
         force_rows_fn = _build_force_rows_fn(
-            c.mass, cfg.eps2, "pallas" if pallas_here else "default"
+            c.mass, cfg.eps2, "pallas" if rows_kernel else "default"
         )
         rows_at_factory = _build_rows_at_factory(c.mass, cfg.eps2,
-                                                 pallas_here)
+                                                 rows_kernel)
     final_eval_fn = None
     if cache_ok:
+        sweep_close = sweep_eval
+        if tree_here and cfg.tree_mac == "relative":
+            # relative MAC: the closing sweep opens nodes against the
+            # OPENING acceleration magnitudes (forces move O(dt) per step,
+            # ample for a truncation-error bound)
+            sweep_close = _sweep_eval_fn(
+                cfg, mesh, force_impl, c.mass, needs_jerk,
+                tree_aref=torch.sqrt(torch.sum(a0 * a0, dim=-1)))
+
         def final_eval_fn(p, v):
-            a, j, pot = sweep_eval(p, v)
+            a, j, pot = sweep_close(p, v)
             return a, (j if needs_jerk else None), pot
 
     out = advance(

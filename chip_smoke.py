@@ -7,7 +7,8 @@ Phases, one result line each (any failure exits non-zero):
 
   1. device   the card's name and power limit (nvidia-smi), CUDA present,
               TF32 off;
-  2. build    nvcc builds csrc/nbody.cu from this checkout (timed);
+  2. build    nvcc builds csrc/nbody.cu and csrc/tree.cu from this checkout,
+              one nvcc each, started together (timed; the ptxas lines);
   3. kernels  each kernel against its plain PyTorch version at N = 32768 on
               a Plummer cluster from init_cluster: kernel 1 (nbody_rows) on
               the full sweep (jerk + raw potential), the leapfrog sweep (no
@@ -26,8 +27,38 @@ Phases, one result line each (any failure exits non-zero):
               k_fast = 256); seconds per simulated Myr, substeps per step,
               launch counts, and the physics invariants.
 
-Then one JSON line with every kernel's launches (from phase 5), error and
-times, and last the line {"ok": true, "device": {...}}.
+The Barnes-Hut tier (force_impl="tree", fractal ICs), run in this order:
+
+  3b. kernel near_field  kernel 3 against its f64 plain version on the
+              tree and pair list of a fractal cluster of N = 131072 (theta
+              0.75, leaf 256, the auto-sized kavg), with jerk and the raw
+              potential, held to 1e-5 of the max; the overflow flag at
+              kavg = 1; the same bits on a repeat; times beside the f32
+              plain version's, and the partner-run lengths;
+  4b. tree accuracy  the tree's acceleration (kernel path) against the
+              exact kernel-1 sweep at N = 65536 fractal, theta 0.75:
+              median <= 1e-2 and p99 <= 5e-2 of |da|/|a|, no overflow;
+  4c. tree parity  the tree slice at n = 4096 fractal, leaf 64, geometric
+              MAC, hermite4_block, k_fast = 64, 3 steps: card against CPU
+              from the same initial bits, the bars of phase 4 (the card
+              run launches kernels 3 and 2, the CPU run none);
+  5b. tree slice  fractal N = 409600 with the default tree knobs
+              (hermite4_block, theta 0.75, leaf 256, tree_kavg auto-sized),
+              10 steps as two cached chunks of 5: init seconds, s/Myr,
+              substeps per step, the launches of all three kernels from
+              before init_cluster (kernel 1: the fractal virial sum) to
+              after the last step; then each kernel against its f64 plain
+              version at the shapes this path gives it (kernel 3 on the
+              live tree's longest partner runs, kernel 2 at K = k_fast
+              against all N columns, kernel 1's eps2 = 1e-30 virial sweep
+              on a row subset; bars as in phases 3 and 3b), a breakdown of
+              one tree sweep, and the physics invariants; then
+              tree_mac="relative" at N = 131072 for 5 steps (exact kernel-1
+              seeding sweep).
+
+Then one JSON line with every kernel's launches (from phase 5b), error (the
+larger of phases 3/3b and 5b) and times, and last the line
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -39,8 +70,14 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_KERNEL = 32768
+N_NEAR = 131072
+N_TREE = 409600
 KERNEL_TOL = 1e-5
 PREDCOLS_TOL = 2e-5
+# the tree's accuracy bars at theta = 0.75 on fractal ICs (the JAX
+# package's own measurement: median 7.3e-3, p99 3.5e-2, docs/precision.md)
+TREE_MEDIAN_TOL = 1e-2
+TREE_P99_TOL = 5e-2
 
 
 def _line(phase: str, **kw) -> None:
@@ -100,15 +137,21 @@ def phase_device():
 
 
 def phase_build():
-    from al26_tpu_torch.ops import cuda_nbody
+    """Both sources, one nvcc each, started together."""
+    from al26_tpu_torch.ops import cuda_build, cuda_nbody, cuda_tree
 
     t0 = time.perf_counter()
-    path = cuda_nbody.build()
+    built = cuda_build.build_all()
     cuda_nbody.load()
+    cuda_tree.load()
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in cuda_nbody.BUILD_LOG.splitlines()
-             if "registers" in ln or "spill" in ln]
-    _line("build", seconds=secs, library=os.path.relpath(path, HERE),
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln
+                    or "Compiling entry" in ln]
+             for name, (_, log) in built.items()}
+    _line("build", seconds=secs,
+          libraries={k: os.path.relpath(p, HERE)
+                     for k, (p, _) in built.items()},
           ptxas=ptxas)
 
 
@@ -260,7 +303,6 @@ def phase_slice(n: int, expect_integ: str):
     from al26_tpu_torch.ops import cuda_nbody as cn
     from al26_tpu_torch.sim import init_cluster
     from al26_tpu_torch.sim.step import fresh_cache, run_steps_cached
-    from al26_tpu_torch.state import cluster_to_numpy
 
     dev = torch.device("cuda")
     cfg = SimConfig(n=n, rc=1.0, seed=42, dtype="f32", force_impl="auto")
@@ -287,6 +329,31 @@ def phase_slice(n: int, expect_integ: str):
     else:
         substeps = launches["nbody_predcols"] / steps
 
+    checks, host = _state_checks(state, cfg, steps)
+    checks["rows_launched"] = launches["nbody_rows"] > 0
+    checks["predcols_launched"] = (integ != "hermite4_block"
+                                   or launches["nbody_predcols"] > 0)
+    sim_myr = steps * cfg.dt
+    _line("slice", n=n, integrator=integ, k_fast=cfg.k_fast,
+          init_s=t_init, wall_s=wall, s_per_myr=wall / sim_myr,
+          substeps_per_step=substeps, launches=launches,
+          wind_total=float(host["slr"][:, :, 0:2].sum()), checks=checks)
+    if not all(checks.values()):
+        _fail(f"n={n}: {[k for k, v in checks.items() if not v]} failed")
+    return launches
+
+
+def _state_checks(state, cfg, steps: int):
+    """The physics invariants of a run of `steps` steps on the card: every
+    state tensor still on the card, time == steps * dt exactly, the step
+    count, finite positions / velocities / reservoirs, non-negative
+    reservoirs, wind only on disc stars (0.1-3 Msun, not the interloper).
+    Returns (checks, the cluster as numpy)."""
+    import numpy as np
+    import torch
+
+    from al26_tpu_torch.state import cluster_to_numpy
+
     c = state.cluster
     tensors = [getattr(c, f) for f in c.__dataclass_fields__]
     tensors += [state.time, state.step_count]
@@ -295,8 +362,6 @@ def phase_slice(n: int, expect_integ: str):
     want_t = (torch.tensor(steps, dtype=torch.float32)
               * torch.tensor(cfg.dt, dtype=torch.float32))
     host = cluster_to_numpy(c)
-    import numpy as np
-
     lm = host["mass"] >= 0.1
     lm &= host["mass"] <= 3.0
     lm &= ~host["is_interloper"]
@@ -309,18 +374,416 @@ def phase_slice(n: int, expect_integ: str):
                        and np.isfinite(host["slr"]).all()),
         "slr_nonneg": bool((host["slr"] >= 0).all()),
         "wind_on_discs_only": not bool(wind_off_disc.any()),
-        "rows_launched": launches["nbody_rows"] > 0,
-        "predcols_launched": (integ != "hermite4_block"
-                              or launches["nbody_predcols"] > 0),
     }
-    sim_myr = steps * cfg.dt
-    _line("slice", n=n, integrator=integ, k_fast=cfg.k_fast,
-          init_s=t_init, wall_s=wall, s_per_myr=wall / sim_myr,
-          substeps_per_step=substeps, launches=launches,
+    return checks, host
+
+
+def _reset_launches() -> None:
+    from al26_tpu_torch.ops import cuda_nbody, cuda_tree
+
+    for counts in (cuda_nbody.LAUNCHES, cuda_tree.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _launches() -> dict:
+    from al26_tpu_torch.ops import cuda_nbody, cuda_tree
+
+    return {**cuda_nbody.LAUNCHES, **cuda_tree.LAUNCHES}
+
+
+def phase_near_field():
+    """Kernel 3 against its f64 plain version on a fractal cluster of
+    N_NEAR stars (the tree and pair list the tree slice would build), the
+    overflow flag, times beside the f32 plain version's, and the
+    partner-run lengths (one CTA per target block is bounded by the
+    longest run)."""
+    import torch
+
+    from al26_tpu_torch import SimConfig
+    from al26_tpu_torch.ops import cuda_tree as ct
+    from al26_tpu_torch.ops import tree as tt
+    from al26_tpu_torch.sim import init_cluster
+
+    dev = torch.device("cuda")
+    cfg = SimConfig(n=N_NEAR, model="fractal", rc=1.0, seed=7, dtype="f32",
+                    force_impl="tree")
+    state, _, cfg = init_cluster(cfg, device=dev)
+    c = state.cluster
+    leaf, kavg, eps2 = cfg.tree_leaf, cfg.tree_kavg, cfg.eps2
+    tree = tt.build_block_tree(c.pos, c.mass, leaf, c.vel)
+    _, p2p = tt.mac_masks(tree, cfg.tree_theta)
+    kw = dict(leaf=leaf, pot_eps2=1e-30, with_jerk=True)
+
+    def kernel(k=kavg):
+        return ct.near_field(tree.pos_s, tree.mass_s, p2p, N_NEAR, eps2,
+                             kavg=k, vel_s=tree.vel_s, **kw)
+
+    got = kernel()
+    d = lambda t: t.double()
+    ref = ct.near_field_plain(d(tree.pos_s), d(tree.mass_s), p2p, N_NEAR,
+                              eps2, kavg=kavg, vel_s=d(tree.vel_s), **kw)
+    errs = {k: _rel_err(g, r) for k, g, r in zip(("acc", "jerk", "pot"),
+                                                  got[:3], ref[:3])}
+    abs_err = max(_abs_err(g, r) for g, r in zip(got[:3], ref[:3]))
+    overflow = bool(got[3])
+    overflow_kavg1 = bool(kernel(1)[3])
+    again = kernel()
+    same_bits = all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]))
+    _, _, count, _ = ct.pair_runs(p2p, kavg)
+    runs = count.double()
+    q = torch.quantile(runs, torch.tensor([0.5, 0.9, 0.99], device=dev,
+                                          dtype=torch.float64))
+    n_pairs = int(count.sum())
+    t_k = _median_ms(kernel, 10)
+    t_runs = _median_ms(lambda: ct.pair_runs(p2p, kavg), 10)
+    t_p = _median_ms(lambda: ct.near_field_plain(
+        tree.pos_s, tree.mass_s, p2p, N_NEAR, eps2, kavg=kavg,
+        vel_s=tree.vel_s, **kw), 3, warmup=1)
+    _line("kernel near_field", n=N_NEAR, leaf=leaf, blocks=p2p.shape[0],
+          kavg=kavg, eps2=eps2, rel_err=errs, tol=KERNEL_TOL,
+          max_abs_err=abs_err, overflow=overflow,
+          overflow_at_kavg1=overflow_kavg1, repeat_same_bits=same_bits,
+          ms=t_k, pair_list_ms=t_runs, plain_f32_ms=t_p,
+          pairs=n_pairs, gpairs_per_s=n_pairs * leaf * leaf / (t_k * 1e6),
+          run_length={"mean": float(runs.mean()), "p50": float(q[0]),
+                      "p90": float(q[1]), "p99": float(q[2]),
+                      "max": int(count.max()), "min": int(count.min())})
+    bad = {k: v for k, v in errs.items() if not v < KERNEL_TOL}
+    if bad or overflow or not overflow_kavg1 or not same_bits:
+        _fail(f"near_field: errors {bad}, overflow {overflow}, overflow at "
+              f"kavg=1 {overflow_kavg1}, repeat same bits {same_bits}")
+    return {"name": "near_field", "route": "cuda",
+            "source": "al26_tpu_torch/csrc/tree.cu",
+            "replaces": "al26_tpu/ops/pallas_tree.py:63",
+            "launches": 0, "max_abs_err": abs_err, "ms": t_k,
+            "plain_ms": t_p}
+
+
+def phase_tree_accuracy():
+    """The tree's acceleration on the kernel path against the exact
+    kernel-1 sweep, on fractal ICs at N = 65536, theta = 0.75 (the JAX
+    package's bench tree_accuracy phase): median and p99 of
+    |da| / |a|."""
+    import torch
+
+    from al26_tpu_torch import SimConfig
+    from al26_tpu_torch.ops import cuda_nbody as cn
+    from al26_tpu_torch.ops import tree as tt
+    from al26_tpu_torch.sim import init_cluster
+
+    dev = torch.device("cuda")
+    n, theta = 65536, 0.75
+    cfg = SimConfig(n=n, rc=1.0, seed=1, dtype="f32", model="fractal",
+                    force_impl="tree", tree_theta=theta)
+    state, _, cfg = init_cluster(cfg, device=dev)
+    pos, mass = state.cluster.pos, state.cluster.mass
+    zeros = torch.zeros_like(pos)
+
+    def exact():
+        return cn.kernel_acc_jerk_pot(pos, zeros, mass, cfg.eps2,
+                                      with_jerk=False, with_pot=False)[0]
+
+    def tree():
+        return tt.tree_acc_pot(pos, mass, cfg.eps2, theta=theta,
+                               leaf=cfg.tree_leaf, kavg=cfg.tree_kavg)
+
+    a_x = exact()
+    _reset_launches()
+    a_t, _, ovf = tree()
+    launched = _launches()["near_field"]
+    rel = ((a_t.double() - a_x.double()).norm(dim=1)
+           / a_x.double().norm(dim=1).clamp(min=1e-30))
+    med = float(rel.median())
+    p99 = float(torch.quantile(rel, 0.99))
+    checks = {"median": med <= TREE_MEDIAN_TOL, "p99": p99 <= TREE_P99_TOL,
+              "no_overflow": not bool(ovf),
+              "finite": bool(torch.isfinite(a_t).all()),
+              "near_field_launched": launched > 0}
+    t_tree = _median_ms(tree, 5)
+    t_exact = _median_ms(exact, 5)
+    _line("tree accuracy", n=n, theta=theta, leaf=cfg.tree_leaf,
+          kavg=cfg.tree_kavg, median=med, p99=p99,
+          tol={"median": TREE_MEDIAN_TOL, "p99": TREE_P99_TOL},
+          tree_sweep_ms=t_tree, exact_sweep_ms=t_exact, checks=checks)
+    if not all(checks.values()):
+        _fail(f"tree accuracy: {[k for k, v in checks.items() if not v]}")
+
+
+def _to_device(state, aux, device):
+    """The same state and aux bits on another device."""
+    import numpy as np
+
+    from al26_tpu_torch.sim.init import SimAux
+    from al26_tpu_torch.state import (
+        aux_from_numpy, cluster_to_numpy, state_from_numpy,
+    )
+
+    s = state_from_numpy(cluster_to_numpy(state.cluster),
+                         state.time.cpu().numpy(),
+                         state.step_count.cpu().numpy(),
+                         dtype=state.cluster.pos.dtype, device=device)
+    aux_np = {f: getattr(aux, f).cpu().numpy()
+              for f in SimAux.__dataclass_fields__ if f != "stellar_tbl"}
+    aux_np["stellar_tbl"] = [np.asarray(a.cpu()) for a in aux.stellar_tbl]
+    return s, aux_from_numpy(aux_np, device=device)
+
+
+def phase_tree_parity():
+    """The tree slice on the card against the tree slice on the CPU, from
+    the same initial bits (one init on the CPU, copied to the card). A
+    geometric-MAC step runs kernel 3 (the tree sweeps) and kernel 2 (the
+    fast-group subcycle); kernel 1 belongs to the tier's init (the fractal
+    virial sum) and to the relative MAC's seeding sweep (phase 5b)."""
+    import numpy as np
+
+    from al26_tpu_torch import SimConfig
+    from al26_tpu_torch.sim import init_cluster, run_steps
+    from al26_tpu_torch.state import cluster_to_numpy
+
+    cfg = SimConfig(n=4096, rc=1.0, seed=5, dtype="f32", model="fractal",
+                    force_impl="tree", tree_leaf=64, tree_mac="geometric",
+                    integrator="hermite4_block", k_fast=64)
+    state, aux, rcfg = init_cluster(cfg, device="cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s0, a0 = _to_device(state, aux, dev)
+        _reset_launches()
+        t0 = time.perf_counter()
+        s = run_steps(s0, a0, rcfg, 3, force_impl="tree")
+        out[dev] = cluster_to_numpy(s.cluster)
+        out[dev + "_s"] = time.perf_counter() - t0
+        launched = _launches()
+        out[dev + "_launches"] = launched
+        if dev == "cpu" and any(launched.values()):
+            _fail(f"the CPU tree run launched kernels: {launched}")
+        if dev == "cuda" and not (launched["near_field"] > 0
+                                  and launched["nbody_predcols"] > 0):
+            _fail(f"the card's tree run missed a kernel: {launched}")
+    g, r = out["cuda"], out["cpu"]
+    pos_err = float(np.max(np.abs(g["pos"] - r["pos"])
+                           / (2e-5 + 2e-4 * np.abs(r["pos"]))))
+    slr_err = float(np.max(np.abs(g["slr"] - r["slr"])
+                           / (1e-30 + 2e-3 * np.abs(r["slr"]))))
+    mass_same = bool(np.array_equal(g["mass"], r["mass"]))
+    _line("tree parity", n=4096, leaf=64, kavg=rcfg.tree_kavg, steps=3,
+          pos_err_over_bar=pos_err, slr_err_over_bar=slr_err,
+          mass_exact=mass_same, cuda_s=out["cuda_s"], cpu_s=out["cpu_s"],
+          launches=out["cuda_launches"])
+    if not (pos_err <= 1.0 and slr_err <= 1.0 and mass_same):
+        _fail("the card's tree slice disagrees with the CPU's")
+
+
+def _sweep_breakdown(state, cfg) -> dict:
+    """Median ms of the pieces of one tree sweep (with jerk and the raw
+    potential) at the state's positions: tree build + MAC, far field,
+    near field (pair list + kernel), and the whole sweep."""
+    from al26_tpu_torch.ops import cuda_tree as ct
+    from al26_tpu_torch.ops import tree as tt
+    from al26_tpu_torch.sim.step import _sweep_eval_fn
+
+    c = state.cluster
+    box = {}
+
+    def build_mac():
+        box["tree"] = tt.build_block_tree(c.pos, c.mass, cfg.tree_leaf,
+                                          c.vel)
+        box["acc"], box["p2p"] = tt.mac_masks(box["tree"], cfg.tree_theta)
+
+    def far():
+        tt._monopole_far_field(box["tree"], box["acc"], cfg.eps2,
+                               tt.G_INTERNAL, 1e-30, with_jerk=True)
+
+    def near():
+        tr = box["tree"]
+        ct.near_field(tr.pos_s, tr.mass_s, box["p2p"], c.n, cfg.eps2,
+                      leaf=cfg.tree_leaf, kavg=cfg.tree_kavg,
+                      pot_eps2=1e-30, vel_s=tr.vel_s, with_jerk=True)
+
+    sweep = _sweep_eval_fn(cfg, None, "tree", c.mass, True)
+    return {"build_and_mac_ms": _median_ms(build_mac, 3, warmup=1),
+            "far_field_ms": _median_ms(far, 3, warmup=1),
+            "near_field_ms": _median_ms(near, 3, warmup=1),
+            "full_sweep_ms": _median_ms(lambda: sweep(c.pos, c.vel), 3,
+                                        warmup=1)}
+
+
+def _main_path_kernel_checks(state, cache, cfg) -> dict:
+    """Each kernel against its f64 plain version at the shapes the N_TREE
+    tree slice gives it, on the slice's state after its last step:
+
+      near_field      the state's tree and pair list (theta, leaf,
+                      tree_kavg; jerk and the raw potential), on the 16
+                      target blocks with the longest partner runs and 16
+                      random others (the plain sweep sees only their
+                      pairs);
+      nbody_predcols  K = k_fast rows (the largest |a|) against all N
+                      columns predicted from the force cache to dt / 2;
+      nbody_rows      the fractal virial sum's sweep (eps2 = 1e-30,
+                      potential) over all N stars, on 2048 random rows.
+
+    Returns {kernel: {"rel_err": {...}, "max_abs_err": x, "tol": bar}}."""
+    import numpy as np
+    import torch
+
+    from al26_tpu_torch.ops import cuda_nbody as cn
+    from al26_tpu_torch.ops import cuda_tree as ct
+    from al26_tpu_torch.ops import tree as tt
+
+    c = state.cluster
+    n, dev = c.n, c.pos.device
+    d = lambda t: t.double()
+    rng = np.random.default_rng(11)
+
+    def record(names, got, ref, tol, **extra):
+        return {"rel_err": {k: _rel_err(g, r)
+                            for k, g, r in zip(names, got, ref)},
+                "max_abs_err": max(_abs_err(g, r) for g, r in zip(got, ref)),
+                "tol": tol, **extra}
+
+    out = {}
+    tree = tt.build_block_tree(c.pos, c.mass, cfg.tree_leaf, c.vel)
+    _, p2p = tt.mac_masks(tree, cfg.tree_theta)
+    kw = dict(leaf=cfg.tree_leaf, kavg=cfg.tree_kavg, pot_eps2=1e-30,
+              with_jerk=True)
+    got = ct.near_field(tree.pos_s, tree.mass_s, p2p, n, cfg.eps2,
+                        vel_s=tree.vel_s, **kw)
+    runs = p2p.sum(1)
+    picked = torch.cat([torch.topk(runs, 16).indices, torch.as_tensor(
+        rng.choice(p2p.shape[0], 16, replace=False), device=dev)])
+    blocks = torch.unique(picked)
+    sub = torch.zeros_like(p2p)
+    sub[blocks] = p2p[blocks]
+    ref = ct.near_field_plain(d(tree.pos_s), d(tree.mass_s), sub, n,
+                              cfg.eps2, vel_s=d(tree.vel_s), **kw)
+    out["near_field"] = record(
+        ("acc", "jerk", "pot"), [g[blocks] for g in got[:3]],
+        [r[blocks] for r in ref[:3]], KERNEL_TOL, blocks=len(blocks),
+        pairs=int(sub.sum()), overflow=bool(got[3]),
+        run_length={"mean": float(runs.double().mean()),
+                    "max": int(runs.max()), "min": int(runs.min())})
+
+    a0, j0 = cache[0], cache[1]
+    sel = torch.topk(a0.norm(dim=1), cfg.k_fast).indices.to(torch.int32)
+    tau = torch.tensor(0.5 * cfg.dt, dtype=torch.float32, device=dev)
+    pf, vf = cn.predict_columns(c.pos[sel], c.vel[sel], a0[sel], j0[sel],
+                                tau)
+    pf, vf = pf.contiguous(), vf.contiguous()
+    got = cn.nbody_predcols(pf, vf, sel, c.pos, c.vel, a0, j0, c.mass, tau,
+                            cfg.eps2)
+    ref = cn.nbody_predcols_plain(d(pf), d(vf), sel, d(c.pos), d(c.vel),
+                                  d(a0), d(j0), d(c.mass), d(tau), cfg.eps2)
+    out["nbody_predcols"] = record(("acc", "jerk"), got, ref, PREDCOLS_TOL,
+                                   k=cfg.k_fast, n=n)
+
+    zeros = torch.zeros_like(c.pos)
+    a1, _, p1 = cn.kernel_acc_jerk_pot(c.pos, zeros, c.mass, 1e-30,
+                                       with_jerk=False)
+    rows = torch.as_tensor(np.sort(rng.choice(n, 2048, replace=False)),
+                           dtype=torch.int32, device=dev)
+    ar, _, pr = cn.nbody_rows_plain(d(c.pos[rows]), d(zeros[rows]), rows,
+                                    d(c.pos), d(zeros), d(c.mass), 1e-30,
+                                    with_jerk=False)
+    out["nbody_rows"] = record(("acc", "pot"), (a1[rows], p1[rows]),
+                               (ar, pr), KERNEL_TOL, rows=2048, n=n,
+                               eps2=1e-30)
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_tree_slice():
+    """The tree tier at size: fractal N_TREE, default knobs (resolving to
+    hermite4_block, theta = 0.75, leaf 256, tree_kavg auto-sized), 10
+    steps as two cached chunks of 5, all three kernels, each then held
+    against its plain version at this path's shapes; then the relative
+    MAC at N_NEAR for 5 steps (exact kernel-1 seeding sweep). Returns the
+    launches and the kernel comparisons."""
+    import torch
+
+    from al26_tpu_torch import SimConfig
+    from al26_tpu_torch.sim import init_cluster, run_steps
+    from al26_tpu_torch.sim.step import fresh_cache, run_steps_cached
+
+    dev = torch.device("cuda")
+    cfg = SimConfig(n=N_TREE, model="fractal", rc=1.0, seed=42, dtype="f32",
+                    force_impl="tree")
+    # the main path is init_cluster, fresh_cache, run_steps_cached: the
+    # counts run from before the init (whose fractal virial sum is a
+    # kernel-1 sweep) to after the last step
+    _reset_launches()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter()
+    state, aux, cfg = init_cluster(cfg, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_init
+    init_launches = _launches()
+    resolved = {"integrator": cfg.integrator == "hermite4_block",
+                "theta": cfg.tree_theta == 0.75, "leaf": cfg.tree_leaf == 256,
+                "kavg": cfg.tree_kavg > 0}
+    if not all(resolved.values()):
+        _fail(f"tree slice resolved {cfg.integrator}, theta "
+              f"{cfg.tree_theta}, leaf {cfg.tree_leaf}, kavg {cfg.tree_kavg}")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = fresh_cache(state, cfg, cfg.integrator, None, "tree")
+    for _ in range(2):                     # two checkpoint-sized chunks
+        state, cache = run_steps_cached(state, cache, aux, cfg, 5, None,
+                                        "tree")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    step_launches = {k: v - init_launches[k] for k, v in launches.items()}
+    steps = 10
+    checks, host = _state_checks(state, cfg, steps)
+    checks["cache_finite"] = all(bool(torch.isfinite(x).all())
+                                 for x in cache)
+    for k in ("near_field", "nbody_rows", "nbody_predcols"):
+        checks[k + "_launched"] = launches[k] > 0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # after the counts are read: these launches compare, they do not count
+    kernel_checks = _main_path_kernel_checks(state, cache, cfg)
+    for k, rec in kernel_checks.items():
+        checks[k + "_matches_plain"] = all(
+            v < rec["tol"] for v in rec["rel_err"].values())
+    checks["near_field_no_overflow"] = not kernel_checks["near_field"][
+        "overflow"]
+    breakdown = _sweep_breakdown(state, cfg)
+    _line("tree slice", n=N_TREE, integrator=cfg.integrator,
+          k_fast=cfg.k_fast, theta=cfg.tree_theta, leaf=cfg.tree_leaf,
+          tree_kavg=cfg.tree_kavg, init_s=t_init, wall_s=wall,
+          s_per_myr=wall / (steps * cfg.dt),
+          wall_per_step_ms=1e3 * wall / steps,
+          substeps_per_step=step_launches["nbody_predcols"] / steps,
+          launches=launches, init_launches=init_launches,
+          step_launches=step_launches, peak_mem_gb=peak_gb, sweep=breakdown,
+          kernels_vs_plain=kernel_checks,
           wind_total=float(host["slr"][:, :, 0:2].sum()), checks=checks)
     if not all(checks.values()):
-        _fail(f"n={n}: {[k for k, v in checks.items() if not v]} failed")
-    return launches
+        _fail(f"tree slice: {[k for k, v in checks.items() if not v]} "
+              "failed")
+
+    # the relative MAC: exact seeding sweep, relative closing sweeps
+    rcfg = SimConfig(n=N_NEAR, model="fractal", rc=1.0, seed=42,
+                     dtype="f32", force_impl="tree", tree_mac="relative")
+    rstate, raux, rcfg = init_cluster(rcfg, device=dev)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rstate = run_steps(rstate, raux, rcfg, 5, force_impl="tree")
+    torch.cuda.synchronize()
+    rwall = time.perf_counter() - t0
+    rlaunch = _launches()
+    rchecks, _ = _state_checks(rstate, rcfg, 5)
+    rchecks["seeding_sweep_nbody_rows"] = rlaunch["nbody_rows"] > 0
+    rchecks["near_field_launched"] = rlaunch["near_field"] > 0
+    _line("tree slice relative", n=N_NEAR, integrator=rcfg.integrator,
+          alpha=rcfg.tree_alpha, tree_kavg=rcfg.tree_kavg, wall_s=rwall,
+          s_per_myr=rwall / (5 * rcfg.dt), launches=rlaunch, checks=rchecks)
+    if not all(rchecks.values()):
+        _fail(f"relative tree run: "
+              f"{[k for k, v in rchecks.items() if not v]} failed")
+    return launches, kernel_checks
 
 
 def main() -> int:
@@ -348,12 +811,19 @@ def main() -> int:
     phase_device()
     phase_build()
     records = phase_kernels()
+    records.append(phase_near_field())
     phase_parity()
+    phase_tree_accuracy()
+    phase_tree_parity()
     phase_slice(8192, "hermite4")
-    big = phase_slice(32768, "hermite4_block")
-    # launches: from the n = 32768 main-path run, which exercises both
+    phase_slice(32768, "hermite4_block")
+    tree, checked = phase_tree_slice()
+    # launches: from the N_TREE tree-tier run, which exercises all three;
+    # the error: the worst of the kernel phases and that run's shapes
     for rec in records:
-        rec["launches"] = big[rec["name"]]
+        rec["launches"] = tree[rec["name"]]
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 checked[rec["name"]]["max_abs_err"])
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,7 @@ JAX the card test runs alone (tests/conftest.py imports JAX, hence
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m gpu
 """
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -250,3 +251,51 @@ def test_kernels_match_plain_on_card():
         for g_, r_ in zip(got, ref):
             assert _rel(g_.cpu(), r_.cpu()) < 2e-5
     torch.cuda.synchronize()
+
+
+def test_build_helper_names_reuses_and_needs_nvcc(tmp_path, monkeypatch):
+    """ops.cuda_build: one library per source, named after the source's
+    hash; an existing library is reused without nvcc; a missing library
+    and no nvcc anywhere raise RuntimeError (no fallback)."""
+    from al26_tpu_torch.ops import cuda_build
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
+    paths = {name: cuda_build.library_path(name) for name in cuda_build.LIBS}
+    assert set(paths) == {"nbody.cu", "tree.cu"}
+    assert len(set(paths.values())) == 2
+    assert all(os.path.dirname(p) == str(tmp_path) for p in paths.values())
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))    # no bin/nvcc there
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.build("tree.cu")
+    open(paths["tree.cu"], "wb").close()          # a built library
+    assert cuda_build.build("tree.cu") == paths["tree.cu"]
+    assert cuda_build.build_all(("tree.cu",)) == {
+        "tree.cu": (paths["tree.cu"], "")}        # reused: no nvcc output
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.build_all()                    # nbody.cu is missing
+
+
+@pytest.mark.gpu
+def test_fractal_virial_sum_follows_dtype_on_card():
+    """The fractal ICs' virial sum on a card: kernel 1 in f32 (one launch,
+    within the kernel bar of the f64 sum), the plain sweep in f64 (no
+    launch, the CPU's f64 sum to round-off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from al26_tpu_torch.models import fractal
+
+    rng = np.random.default_rng(4)
+    pos = rng.normal(size=(3000, 3))
+    mass = rng.uniform(0.1, 2.0, 3000)
+    want = fractal._potential_energy(pos, mass, device="cpu",
+                                     dtype=torch.float64)
+    before = cn.LAUNCHES["nbody_rows"]
+    u64 = fractal._potential_energy(pos, mass, device="cuda",
+                                    dtype=torch.float64)
+    assert cn.LAUNCHES["nbody_rows"] == before
+    assert abs(u64 - want) < 1e-12 * abs(want)
+    u32 = fractal._potential_energy(pos, mass, device="cuda",
+                                    dtype=torch.float32)
+    assert cn.LAUNCHES["nbody_rows"] == before + 1
+    assert abs(u32 - want) < 1e-5 * abs(want)

@@ -145,3 +145,23 @@ def test_mass_delta_correction_auto_chunks():
                                      0.05, block=0)
     _close(auto[0], dense[0], rtol=1e-14)
     _close(auto[2], dense[2], rtol=1e-14)
+
+
+def test_mass_delta_correction_raw_pot_close_pair_f32():
+    """In f32 a target within ~1e-4 pc of a source that lost mass: the
+    raw-potential correction is +G |dm| / d, not the G |dm| * 1e15 that
+    the form r2 - eps2 gives once d2 drops below half an ulp of eps2 (it
+    turned the virial radius negative on the card at N = 409600)."""
+    pos = np.array([[0.7, -0.3, 0.2], [0.7 + 3e-5, -0.3 - 2e-5, 0.2],
+                    [-1.0, 0.5, 0.4]])
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    src = torch.as_tensor([0], dtype=torch.int32)
+    dm = f32([-0.01])
+    zeros = f32(np.zeros((3, 3)))
+    _, _, pot = tn.mass_delta_correction(zeros, None, f32(np.zeros(3)),
+                                         f32(pos), zeros, src, dm, 0.125)
+    p32 = f32(pos).double().numpy()
+    d = np.linalg.norm(p32[1:] - p32[0], axis=1)
+    want = tn.G_INTERNAL * 0.01 / d
+    assert pot[0] == 0.0                                 # the self pair
+    np.testing.assert_allclose(pot[1:].double().numpy(), want, rtol=1e-5)

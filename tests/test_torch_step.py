@@ -110,7 +110,7 @@ def test_not_ported_backends_raise():
     from al26_tpu_torch.sim import init_cluster
 
     ts, ta, tcfg = init_cluster(SimConfig(n=32, seed=2), device="cpu")
-    for fi in ("sharded", "ring", "tree"):
+    for fi in ("sharded", "ring"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_step.step(ts, ta, tcfg, force_impl=fi)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
