@@ -11,7 +11,10 @@ al26_tpu; plain functions on tensors with an explicit device.
 The ported slice is the single-cluster, single-device run through the
 library API, Plummer or fractal initial conditions, exact direct
 summation or force_impl="tree": sim.init_cluster, then sim.run_steps /
-sim.run_steps_cached.
+sim.run_steps_cached; and ensembles of realizations on one device
+(parallel.ensemble: init_ensemble, then ensemble_run_steps or
+ensemble_fresh_cache + ensemble_run_steps_cached), whose flattened step
+sweeps block-diagonal groups through kernel 1's group windows.
 """
 import torch
 

@@ -45,8 +45,37 @@
 // eps2 for the forces and d2 + pot_eps2 for a separately softened
 // potential (the JAX form r2 - eps2 + pot_eps2 cancels in f32 when d2 is
 // much smaller than eps2).
+//
+// Block-diagonal group windows (nbody_rows with group_size gs > 0) replace
+// the `group_size > 0` mode of the same Pallas kernel
+// (pallas_nbody.py:121-137 the window, :164-167 the mask, :247-248 the loop
+// bounds). A flattened ensemble of B realizations of gs stars each (global
+// id = realization * gs + star) is one B*gs-row sweep in which a row only
+// feels the columns of its own realization: id / gs == col / gs. That is a
+// different sum from the plain sweep, not a faster way to the same one.
+//   * Window: each block of TB rows reduces the smallest and largest valid
+//     row id among its rows (padding rows are -1) in shared memory; a
+//     scattered fast-group subset may span several groups. Its columns are
+//     [g_lo gs, (g_hi + 1) gs) clipped to [0, n), with
+//     g_lo = min id / gs and g_hi = max id / gs. A block of padding rows
+//     only has an empty window and writes zero partials.
+//   * The gridDim.y column splits divide that window, not [0, n), so a
+//     64000-row sweep of 64 realizations of 1000 stars does not launch
+//     blocks that find no columns; tiles start at the window's start.
+//   * Each staged column carries its group id in shared memory beside its
+//     mass (one division per column and block; -2 beyond the split's end),
+//     so no pair divides; a row of group g keeps the pair when the column's
+//     group is g and the column is not its own id (a select, never a
+//     product with 0). A padding row (group -1) keeps none.
+//   * The bound: B gs^2 useful pairs (one realization each), plus the
+//     masked pairs of blocks whose rows straddle two groups, roughly TB/gs
+//     of the work for contiguous rows; still bound by FP32 throughput.
+// The per-tile two-level sums and the ordered reduce_partials are shared
+// with the plain sweep, so a repeat gives the same bits.
 
 #include <cuda_runtime.h>
+
+#include <climits>
 
 namespace {
 
@@ -54,7 +83,7 @@ constexpr int TB = 128;      // rows (threads) per block
 constexpr int TJ = 256;      // source columns per shared-memory tile
 constexpr int NSUM = 7;      // ax ay az jx jy jz pot
 
-template <bool WITH_JERK, bool WITH_POT, bool SEP_POT, bool PRED>
+template <bool WITH_JERK, bool WITH_POT, bool SEP_POT, bool PRED, bool GROUP>
 __global__ void __launch_bounds__(TB) pair_sweep(
     const float* __restrict__ rows_pos,    // [B,3]
     const float* __restrict__ rows_vel,    // [B,3]
@@ -66,7 +95,8 @@ __global__ void __launch_bounds__(TB) pair_sweep(
     const float* __restrict__ jerk0,       // [N,3] PRED only
     const float* __restrict__ mass,        // [N]
     int n,
-    int cols_per_split,
+    int cols_per_split,                    // !GROUP only
+    int gs,                                // GROUP only: stars per group
     const float* __restrict__ tau_ptr,     // [1] PRED only
     float eps2,
     float pot_eps2,
@@ -75,6 +105,8 @@ __global__ void __launch_bounds__(TB) pair_sweep(
     __shared__ float sx[TJ], sy[TJ], sz[TJ];
     __shared__ float svx[TJ], svy[TJ], svz[TJ];
     __shared__ float sm[TJ];
+    __shared__ int sg[TJ];                 // GROUP only: column group ids
+    __shared__ int s_lo, s_hi;             // GROUP only: the rows' id range
 
     const int row = blockIdx.x * TB + threadIdx.x;
     const bool live = row < b;
@@ -98,8 +130,36 @@ __global__ void __launch_bounds__(TB) pair_sweep(
         t3h = t2h * tau * (1.0f / 3.0f);
     }
 
-    const int c_begin = blockIdx.y * cols_per_split;
-    const int c_end = min(n, c_begin + cols_per_split);
+    int c_begin, c_end;
+    int gi = -1;                           // this row's group
+    if (GROUP) {
+        if (threadIdx.x == 0) {
+            s_lo = INT_MAX;
+            s_hi = -1;
+        }
+        __syncthreads();
+        if (id >= 0) {
+            atomicMin(&s_lo, id);
+            atomicMax(&s_hi, id);
+            gi = id / gs;
+        }
+        __syncthreads();
+        int w_lo = 0, w_hi = 0;            // empty for all-padding blocks
+        if (s_hi >= 0) {
+            w_lo = (s_lo / gs) * gs;
+            w_hi = min(n, (s_hi / gs + 1) * gs);
+        }
+        // whole tiles per split from the window's start, as
+        // cols_per_split_of does for [0, n)
+        const int splits = static_cast<int>(gridDim.y);
+        const int tiles = (w_hi - w_lo + TJ - 1) / TJ;
+        const int per_split = (tiles + splits - 1) / splits * TJ;
+        c_begin = w_lo + static_cast<int>(blockIdx.y) * per_split;
+        c_end = min(w_hi, c_begin + per_split);
+    } else {
+        c_begin = blockIdx.y * cols_per_split;
+        c_end = min(n, c_begin + cols_per_split);
+    }
     float ax = 0.f, ay = 0.f, az = 0.f;
     float jx = 0.f, jy = 0.f, jz = 0.f;
     float pot = 0.f;
@@ -138,6 +198,7 @@ __global__ void __launch_bounds__(TB) pair_sweep(
             sx[k] = px; sy[k] = py; sz[k] = pz;
             svx[k] = qx; svy[k] = qy; svz[k] = qz;
             sm[k] = m;
+            if (GROUP) sg[k] = c < c_end ? c / gs : -2;
         }
         __syncthreads();
 
@@ -156,7 +217,9 @@ __global__ void __launch_bounds__(TB) pair_sweep(
             const float d2 = dx * dx + dy * dy + dz * dz;
             const float mj = sm[k];
             // self pair by id, padding and other splits' columns by range
-            const bool valid = (col != id) && (col < c_end);
+            // (GROUP: by the staged group id, -2 past the range)
+            const bool valid = GROUP ? (col != id) && (sg[k] == gi)
+                                     : (col != id) && (col < c_end);
             const float inv_r = valid ? rsqrtf(d2 + eps2) : 0.f;
             const float inv_r2 = inv_r * inv_r;
             const float w = mj * (inv_r * inv_r2);  // m_j / r^3, masked
@@ -219,20 +282,6 @@ __global__ void reduce_partials(
     }
 }
 
-template <bool WITH_JERK, bool WITH_POT, bool SEP_POT, bool PRED>
-void launch_sweep(dim3 grid, cudaStream_t st,
-                  const float* rows_pos, const float* rows_vel,
-                  const int* row_ids, int b, const float* pos,
-                  const float* vel, const float* acc0, const float* jerk0,
-                  const float* mass, int n, int cols_per_split,
-                  const float* tau, float eps2, float pot_eps2,
-                  float* partial)
-{
-    pair_sweep<WITH_JERK, WITH_POT, SEP_POT, PRED><<<grid, TB, 0, st>>>(
-        rows_pos, rows_vel, row_ids, b, pos, vel, acc0, jerk0, mass, n,
-        cols_per_split, tau, eps2, pot_eps2, partial);
-}
-
 int cols_per_split_of(int n, int splits)
 {
     // whole tiles per split, so only the last split has a ragged tile
@@ -241,49 +290,57 @@ int cols_per_split_of(int n, int splits)
     return tiles_per_split * TJ;
 }
 
+// The row sweep (no prediction) for one (jerk, potential) mode; GROUP
+// takes the block-diagonal window of gs-star groups.
+template <bool GROUP>
+void launch_rows(dim3 grid, cudaStream_t st,
+                 const float* rows_pos, const float* rows_vel,
+                 const int* row_ids, int b, const float* pos,
+                 const float* vel, const float* mass, int n, int gs,
+                 float eps2, float pot_eps2,
+                 int with_jerk, int with_pot, int sep_pot, float* partial)
+{
+    const int cps = cols_per_split_of(n, grid.y);
+#define AL26_ROWS(J, P, S)                                                  \
+    pair_sweep<J, P, S, false, GROUP><<<grid, TB, 0, st>>>(                 \
+        rows_pos, rows_vel, row_ids, b, pos, vel, nullptr, nullptr, mass,   \
+        n, cps, gs, nullptr, eps2, pot_eps2, partial)
+    if (with_jerk) {
+        if (!with_pot) AL26_ROWS(true, false, false);
+        else if (sep_pot) AL26_ROWS(true, true, true);
+        else AL26_ROWS(true, true, false);
+    } else {
+        if (!with_pot) AL26_ROWS(false, false, false);
+        else if (sep_pot) AL26_ROWS(false, true, true);
+        else AL26_ROWS(false, true, false);
+    }
+#undef AL26_ROWS
+}
+
 }  // namespace
 
 extern "C" {
 
-// Kernel 1. Returns cudaGetLastError() after the two launches.
+// Kernel 1; group_size > 0 takes the block-diagonal group windows. Returns
+// cudaGetLastError() after the two launches.
 int nbody_rows_launch(
     const float* rows_pos, const float* rows_vel, const int* row_ids, int b,
     const float* pos, const float* vel, const float* mass, int n,
     float eps2, float pot_eps2, float g,
-    int with_jerk, int with_pot, int sep_pot,
+    int with_jerk, int with_pot, int sep_pot, int group_size,
     float* partial, int splits,
     float* acc, float* jerk, float* pot, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int cps = cols_per_split_of(n, splits);
     dim3 grid((b + TB - 1) / TB, splits);
-    if (with_jerk) {
-        if (!with_pot)
-            launch_sweep<true, false, false, false>(grid, st, rows_pos,
-                rows_vel, row_ids, b, pos, vel, nullptr, nullptr, mass, n,
-                cps, nullptr, eps2, pot_eps2, partial);
-        else if (sep_pot)
-            launch_sweep<true, true, true, false>(grid, st, rows_pos,
-                rows_vel, row_ids, b, pos, vel, nullptr, nullptr, mass, n,
-                cps, nullptr, eps2, pot_eps2, partial);
-        else
-            launch_sweep<true, true, false, false>(grid, st, rows_pos,
-                rows_vel, row_ids, b, pos, vel, nullptr, nullptr, mass, n,
-                cps, nullptr, eps2, pot_eps2, partial);
-    } else {
-        if (!with_pot)
-            launch_sweep<false, false, false, false>(grid, st, rows_pos,
-                rows_vel, row_ids, b, pos, vel, nullptr, nullptr, mass, n,
-                cps, nullptr, eps2, pot_eps2, partial);
-        else if (sep_pot)
-            launch_sweep<false, true, true, false>(grid, st, rows_pos,
-                rows_vel, row_ids, b, pos, vel, nullptr, nullptr, mass, n,
-                cps, nullptr, eps2, pot_eps2, partial);
-        else
-            launch_sweep<false, true, false, false>(grid, st, rows_pos,
-                rows_vel, row_ids, b, pos, vel, nullptr, nullptr, mass, n,
-                cps, nullptr, eps2, pot_eps2, partial);
-    }
+    if (group_size > 0)
+        launch_rows<true>(grid, st, rows_pos, rows_vel, row_ids, b, pos, vel,
+                          mass, n, group_size, eps2, pot_eps2, with_jerk,
+                          with_pot, sep_pot, partial);
+    else
+        launch_rows<false>(grid, st, rows_pos, rows_vel, row_ids, b, pos,
+                           vel, mass, n, 0, eps2, pot_eps2, with_jerk,
+                           with_pot, sep_pot, partial);
     const int rb = 256;
     reduce_partials<<<(b * NSUM + rb - 1) / rb, rb, 0, st>>>(
         partial, splits, b, g, with_jerk, with_pot, acc, jerk, pot);
@@ -302,9 +359,9 @@ int nbody_predcols_launch(
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int cps = cols_per_split_of(n, splits);
     dim3 grid((b + TB - 1) / TB, splits);
-    launch_sweep<true, false, false, true>(grid, st, rows_pos, rows_vel,
-        row_ids, b, pos0, vel0, acc0, jerk0, mass, n, cps, tau, eps2, 0.f,
-        partial);
+    pair_sweep<true, false, false, true, false><<<grid, TB, 0, st>>>(
+        rows_pos, rows_vel, row_ids, b, pos0, vel0, acc0, jerk0, mass, n,
+        cps, 0, tau, eps2, 0.f, partial);
     const int rb = 256;
     reduce_partials<<<(b * NSUM + rb - 1) / rb, rb, 0, st>>>(
         partial, splits, b, g, 1, 0, acc, jerk, nullptr);

@@ -6,7 +6,11 @@ Two hand-written Hopper kernels live in `al26_tpu_torch/csrc/nbody.cu`
 shaped):
 
   * `nbody_rows`     — acc / jerk / potential of B target rows against all
-    N sources (the full sweep, and the fast-group row sweeps);
+    N sources (the full sweep, and the fast-group row sweeps); with
+    `group_size` gs > 0 only against the sources of each row's own group
+    (global id // gs): the block-diagonal windows of a flattened ensemble
+    of realizations of gs stars, launches counted under
+    `LAUNCHES["nbody_rows_group"]`;
   * `nbody_predcols` — acc / jerk of K fast rows against N source columns
     Hermite-predicted to offset tau inside the kernel (the hermite4_block
     subcycle, one launch per substep).
@@ -25,9 +29,8 @@ launches of each wrapper and nothing else.
 The JAX package's entry points and factories keep their names and
 layouts (pos [N,3]): `kernel_acc_jerk_pot(_rows)` for
 `pallas_acc_jerk_pot(_rows)`, and `make_pallas_force`, `make_pallas_acc`,
-`make_pallas_force_rows`, `make_pred_force_rows`. Kernel 1's block-diagonal
-ensemble windows (`group_size > 0`) and its matmul reduction
-(`use_mxu=True`) are not ported; asking for them raises
+`make_pallas_force_rows`, `make_pred_force_rows`. The matmul reduction of
+kernels 1 and 2 (`use_mxu=True`) is not ported; asking for it raises
 NotImplementedError (ROADMAP queue 2).
 """
 from __future__ import annotations
@@ -40,7 +43,7 @@ import torch
 from ..units import G_INTERNAL
 from . import cuda_build
 
-LAUNCHES = {"nbody_rows": 0, "nbody_predcols": 0}
+LAUNCHES = {"nbody_rows": 0, "nbody_rows_group": 0, "nbody_predcols": 0}
 
 # must match TB / TJ in csrc/nbody.cu: rows per block, columns per tile
 _TB = 128
@@ -77,7 +80,7 @@ def load():
         p, p, p, i,           # rows_pos, rows_vel, row_ids, b
         p, p, p, i,           # pos, vel, mass, n
         f, f, f,              # eps2, pot_eps2, g
-        i, i, i,              # with_jerk, with_pot, sep_pot
+        i, i, i, i,           # with_jerk, with_pot, sep_pot, group_size
         p, i,                 # partial, splits
         p, p, p, p,           # acc, jerk, pot, stream
     ]
@@ -94,9 +97,14 @@ def load():
     return lib
 
 
-def _splits(b: int, n: int) -> int:
+def _splits(b: int, n: int, group_size: int = 0) -> int:
     """Column splits: enough blocks to fill the card when the row count is
-    small (fast-group calls), never more splits than column tiles."""
+    small (fast-group calls), never more splits than column tiles. With
+    group windows the splits divide a block's window: in a full sweep
+    (contiguous rows) at most ceil((TB - 1) / gs) + 1 groups, while a row
+    subset may scatter over all of [0, n) (the fast group)."""
+    if group_size > 0 and b >= n:
+        n = min(n, (-(-(_TB - 1) // group_size) + 1) * group_size)
     row_blocks = -(-b // _TB)
     tiles = -(-n // _TJ)
     return max(1, min(-(-_TARGET_BLOCKS // row_blocks), tiles))
@@ -132,18 +140,27 @@ def _check_rows(pos_rows, vel_rows, row_ids, cols):
 # plain PyTorch versions (the CPU path, and the comparison on the card)
 # --------------------------------------------------------------------------
 
+def _group(ids: torch.Tensor, group_size: int) -> torch.Tensor:
+    """Group of each global id (id // gs; -1 for a padding id of -1)."""
+    return torch.div(ids.long(), group_size, rounding_mode="floor")
+
+
 def _pair_sums(xi, vi, ids, px, pv, mass, eps2, pot_eps2, with_jerk,
-               with_pot):
+               with_pot, col0: int = 0, group_size: int = 0):
     """The kernels' per-pair arithmetic on a [C] x [N] block of rows and
     columns (same masks, same FMA-form expressions); returns the unscaled
-    sums (acc, jerk, pot) of the rows."""
+    sums (acc, jerk, pot) of the rows. The columns are global ids col0,
+    col0 + 1, ...; group_size > 0 keeps only the pairs of one group."""
     n = px.shape[0]
     dx = px[None, :, 0] - xi[:, 0, None]
     dy = px[None, :, 1] - xi[:, 1, None]
     dz = px[None, :, 2] - xi[:, 2, None]
     d2 = dx * dx + dy * dy + dz * dz
-    cols = torch.arange(n, device=xi.device)
+    cols = col0 + torch.arange(n, device=xi.device)
     valid = cols[None, :] != ids[:, None].to(cols.dtype)
+    if group_size > 0:
+        valid &= _group(cols, group_size)[None, :] == _group(
+            ids, group_size)[:, None]
     inv_r = torch.where(valid, torch.rsqrt(d2 + eps2), 0.0)
     inv_r2 = inv_r * inv_r
     w = mass[None, :] * (inv_r * inv_r2)
@@ -169,24 +186,52 @@ def _pair_sums(xi, vi, ids, px, pv, mass, eps2, pot_eps2, with_jerk,
     return acc, jerk, pot
 
 
-def nbody_rows_plain(pos_rows, vel_rows, row_ids, pos, vel, mass,
-                     eps2: float, g: float = G_INTERNAL,
-                     with_jerk: bool = True, with_pot: bool = True,
-                     pot_eps2: float | None = None):
-    """What the nbody_rows kernel computes, in plain row-chunked PyTorch,
-    in the dtype of its inputs: (acc [B,3], jerk [B,3], pot [B]). `pot_eps2`
-    None softens the potential by eps2; a value softens it separately (d2
-    + pot_eps2). Rows with id -1 are padding and mask no pair."""
+def _rows_chunked(pos_rows, vel_rows, row_ids, pos, vel, mass, eps2,
+                  pot_eps2, with_jerk, with_pot, col0=0, group_size=0):
+    """_pair_sums over row chunks that keep a [rows, N] temporary small."""
     b, n = pos_rows.shape[0], pos.shape[0]
     chunk = max(1, _PLAIN_CHUNK_ELEMS // max(n, 1))
     outs = [_pair_sums(pos_rows[s:s + chunk], vel_rows[s:s + chunk],
                        row_ids[s:s + chunk], pos, vel, mass, eps2, pot_eps2,
-                       with_jerk, with_pot)
+                       with_jerk, with_pot, col0, group_size)
             for s in range(0, b, chunk)]
     if not outs:
         z = pos_rows.new_zeros((0, 3))
         return z, z.clone(), pos_rows.new_zeros((0,))
-    acc, jerk, pot = (torch.cat(x, 0) for x in zip(*outs))
+    return tuple(torch.cat(x, 0) for x in zip(*outs))
+
+
+def nbody_rows_plain(pos_rows, vel_rows, row_ids, pos, vel, mass,
+                     eps2: float, g: float = G_INTERNAL,
+                     with_jerk: bool = True, with_pot: bool = True,
+                     pot_eps2: float | None = None, group_size: int = 0):
+    """What the nbody_rows kernel computes, in plain row-chunked PyTorch,
+    in the dtype of its inputs: (acc [B,3], jerk [B,3], pot [B]). `pot_eps2`
+    None softens the potential by eps2; a value softens it separately (d2
+    + pot_eps2). Rows with id -1 are padding and mask no pair.
+
+    group_size gs > 0: each row only against the columns of its own group
+    (id // gs): the rows of each group present are swept over that group's
+    window [g gs, (g + 1) gs) with the group mask, as the kernel's windows
+    do; a padding row gets zeros."""
+    if group_size <= 0:
+        acc, jerk, pot = _rows_chunked(pos_rows, vel_rows, row_ids, pos, vel,
+                                       mass, eps2, pot_eps2, with_jerk,
+                                       with_pot)
+        return g * acc, g * jerk, g * pot
+    n = pos.shape[0]
+    acc = pos_rows.new_zeros(pos_rows.shape)
+    jerk = torch.zeros_like(acc)
+    pot = pos_rows.new_zeros(pos_rows.shape[:1])
+    grp = _group(row_ids, group_size)
+    for gid in torch.unique(grp[grp >= 0]).tolist():
+        rows = torch.nonzero(grp == gid).flatten()
+        c0, c1 = gid * group_size, min(n, (gid + 1) * group_size)
+        a, j, p = _rows_chunked(pos_rows[rows], vel_rows[rows],
+                                row_ids[rows], pos[c0:c1], vel[c0:c1],
+                                mass[c0:c1], eps2, pot_eps2, with_jerk,
+                                with_pot, c0, group_size)
+        acc[rows], jerk[rows], pot[rows] = a, j, p
     return g * acc, g * jerk, g * pot
 
 
@@ -217,15 +262,19 @@ def nbody_predcols_plain(pos_rows, vel_rows, row_ids, pos0, vel0, a0, j0,
 
 def nbody_rows(pos_rows, vel_rows, row_ids, pos, vel, mass, eps2: float,
                g: float = G_INTERNAL, with_jerk: bool = True,
-               with_pot: bool = True, pot_eps2: float | None = None):
+               with_pot: bool = True, pot_eps2: float | None = None,
+               group_size: int = 0):
     """Kernel 1: (acc [B,3], jerk [B,3], pot [B]) of B f32 rows (global
     ids `row_ids`, int32, -1 = padding) against N f32 columns. Jerk and
-    pot are zeros when not asked for."""
+    pot are zeros when not asked for. group_size > 0: each row only
+    against its own group's columns (the block-diagonal windows)."""
     b, n, device = _check_rows(pos_rows, vel_rows, row_ids,
                                [("pos", pos), ("vel", vel), ("mass", mass)])
+    group_size = max(int(group_size), 0)
     if device.type == "cpu":
         return nbody_rows_plain(pos_rows, vel_rows, row_ids, pos, vel, mass,
-                                eps2, g, with_jerk, with_pot, pot_eps2)
+                                eps2, g, with_jerk, with_pot, pot_eps2,
+                                group_size)
     if device.type != "cuda":
         raise ValueError(f"nbody_rows runs on cuda or cpu, not {device}")
     acc = torch.empty((b, 3), dtype=torch.float32, device=device)
@@ -236,7 +285,7 @@ def nbody_rows(pos_rows, vel_rows, row_ids, pos, vel, mass, eps2: float,
     if n == 0:
         return acc.zero_(), jerk.zero_(), pot.zero_()
     lib = load()
-    splits = _splits(b, n)
+    splits = _splits(b, n, group_size)
     partial = torch.empty((splits, b, 7), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -245,12 +294,12 @@ def nbody_rows(pos_rows, vel_rows, row_ids, pos, vel, mass, eps2: float,
             pos.data_ptr(), vel.data_ptr(), mass.data_ptr(), n,
             float(eps2), float(0.0 if pot_eps2 is None else pot_eps2),
             float(g), int(with_jerk), int(with_pot),
-            int(pot_eps2 is not None),
+            int(pot_eps2 is not None), group_size,
             partial.data_ptr(), splits,
             acc.data_ptr(), jerk.data_ptr(), pot.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"nbody_rows launch failed: cudaError {err}")
-    LAUNCHES["nbody_rows"] += 1
+    LAUNCHES["nbody_rows_group" if group_size > 0 else "nbody_rows"] += 1
     return acc, jerk, pot
 
 
@@ -298,15 +347,11 @@ def nbody_predcols(pos_rows, vel_rows, row_ids, pos0, vel0, a0, j0, mass,
 # the JAX package's entry points and factories
 # --------------------------------------------------------------------------
 
-def _not_ported(group_size: int, use_mxu: bool) -> None:
-    if group_size > 0:
-        raise NotImplementedError(
-            "group_size > 0 (kernel 1's block-diagonal ensemble windows) is "
-            "not ported yet (ROADMAP queue 2, item 1)")
+def _not_ported(use_mxu: bool) -> None:
     if use_mxu:
         raise NotImplementedError(
-            "use_mxu=True (kernel 1's matmul reduction) is not ported yet "
-            "(ROADMAP queue 2, item 1)")
+            "use_mxu=True (the matmul reduction of kernels 1 and 2) is not "
+            "ported yet (ROADMAP queue 2)")
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -322,12 +367,15 @@ def kernel_acc_jerk_pot_rows(
     """Forces on `pos_rows` (global ids `row_ids`, any order or subset,
     -1 = padding) from all of `pos` — pallas_acc_jerk_pot_rows. Computed
     in f32 and returned in the rows' dtype, as the Pallas path does.
-    `with_pot=False` skips the potential (callers that discard it)."""
-    _not_ported(group_size, use_mxu)
+    `with_pot=False` skips the potential (callers that discard it).
+    `group_size` gs > 0: block-diagonal groups of gs stars (a flattened
+    ensemble; gs counts an interloper), each row against its own group's
+    columns only."""
+    _not_ported(use_mxu)
     a, j, p = nbody_rows(
         _f32(pos_rows), _f32(vel_rows),
         row_ids.to(torch.int32).contiguous(), _f32(pos), _f32(vel),
-        _f32(mass), eps2, g, with_jerk, with_pot, pot_eps2)
+        _f32(mass), eps2, g, with_jerk, with_pot, pot_eps2, group_size)
     dtype = pos_rows.dtype
     return a.to(dtype), j.to(dtype), p.to(dtype)
 
@@ -388,7 +436,7 @@ def make_pred_force_rows(pos0, vel0, a0, j0, mass, eps2: float = 0.0,
     step-start columns are made HERE, once per step, outside the substep
     loop; each substep is then one launch. No mean-centring: it served
     only the matmul-reduction variant, which is not ported."""
-    _not_ported(0, use_mxu)
+    _not_ported(use_mxu)
     cols = tuple(_f32(t) for t in (pos0, vel0, a0, j0, mass))
 
     def rows_at(pos_rows, vel_rows, row_ids, tau):

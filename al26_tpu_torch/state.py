@@ -99,8 +99,8 @@ class SimState:
         return dataclasses.replace(self, **kw)
 
 
-def empty_cluster(n: int, dtype=torch.float64, device="cpu") -> Cluster:
-    """Allocate a zeroed cluster of n stars."""
+def empty_cluster(n: int, dtype=torch.float64, *, device) -> Cluster:
+    """Allocate a zeroed cluster of n stars on `device`."""
     f = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
     b = lambda *shape: torch.zeros(shape, dtype=torch.bool, device=device)
     return Cluster(
@@ -125,7 +125,7 @@ def cluster_to_numpy(c: Cluster) -> dict:
     }
 
 
-def cluster_from_numpy(d: dict, dtype=torch.float64, device="cpu") -> Cluster:
+def cluster_from_numpy(d: dict, dtype=torch.float64, *, device) -> Cluster:
     """Inverse of cluster_to_numpy: bool fields stay bool, every other
     field becomes `dtype` on `device` (always a copy of the array)."""
     kw = {}
@@ -139,18 +139,18 @@ def cluster_from_numpy(d: dict, dtype=torch.float64, device="cpu") -> Cluster:
 
 
 def state_from_numpy(cluster_np: dict, time, step_count, *,
-                     dtype=torch.float64, device="cpu") -> SimState:
+                     dtype=torch.float64, device) -> SimState:
     """SimState from a cluster dict of numpy arrays (al26_tpu's
     `cluster_to_numpy` output or ours), a time (Myr) and a step count."""
     return SimState(
-        cluster=cluster_from_numpy(cluster_np, dtype, device),
+        cluster=cluster_from_numpy(cluster_np, dtype, device=device),
         time=torch.tensor(np.asarray(time), dtype=dtype, device=device),
         step_count=torch.tensor(np.asarray(step_count), dtype=torch.int32,
                                 device=device),
     )
 
 
-def aux_from_numpy(aux_np: dict, *, device="cpu"):
+def aux_from_numpy(aux_np: dict, *, device):
     """sim.init.SimAux from a dict of numpy arrays keyed by the SimAux
     field names (al26_tpu's SimAux fields pulled to the host, or ours).
     `stellar_tbl` is a sequence of the seven PhaseTable arrays. Every

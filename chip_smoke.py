@@ -56,8 +56,36 @@ The Barnes-Hut tier (force_impl="tree", fractal ICs), run in this order:
               tree_mac="relative" at N = 131072 for 5 steps (exact kernel-1
               seeding sweep).
 
-Then one JSON line with every kernel's launches (from phase 5b), error (the
-larger of phases 3/3b and 5b) and times, and last the line
+The flattened ensembles (parallel.ensemble, kernel 1's group windows):
+
+  3c. kernel nbody_rows_group  the windowed kernel against its f64 plain
+              grouped version on the initial states of the two ensembles
+              below, B x N = 64 x 1000 and 8 x 10240: the full sweep with
+              jerk and the raw potential and the acceleration-only sweep
+              (bar 1e-5 of the max), 512 scattered rows spanning several
+              groups (bar 2e-5); the same bits on a repeat; times beside
+              the f32 plain version's;
+  4d. ensemble parity  a B = 4, n = 256 ensemble, 3 flat steps: the card
+              (group windows, force cache) against the CPU (per-realization
+              dense forces) from the same initial bits, the bars of phase 4;
+  5c. ensemble slice  init_ensemble, ensemble_fresh_cache and
+              ensemble_run_steps_cached (leapfrog as resolved at the
+              ensemble boundary): 64 realizations of N = 1000 for 20 steps
+              (two chunks of 10) and 8 of N = 10240 for 5 steps; s/Myr, the
+              step split into the per-realization physics and the rest
+              (the advance and the force cache), the launches (counts set
+              to 0 just before fresh_cache and read after the last step),
+              the physics invariants of every realization, and the
+              windowed closing sweep on the final state against its f64
+              plain version.
+
+The run order: 1, 2, 3, 3b, 3c, 4, 4d, 4b, 4c, 5, 5b, 5c.
+
+Then one JSON line with every kernel's launches (kernels 1-3 from phase 5b,
+the windowed kernel from the 64 x 1000 run of phase 5c), error (the largest
+of its comparisons), times, and the least time the card could take for the
+same work (bound_ms: the larger of the FLOPs over the FP32 peak and the
+bytes over the HBM rate; bound_by says which), and last the line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -78,6 +106,15 @@ PREDCOLS_TOL = 2e-5
 # package's own measurement: median 7.3e-3, p99 3.5e-2, docs/precision.md)
 TREE_MEDIAN_TOL = 1e-2
 TREE_P99_TOL = 5e-2
+# the ensembles: (realizations, stars each, steps, chunks of the cached run)
+ENSEMBLES = ((64, 1000, 20, (10, 10)), (8, 10240, 5, (5,)))
+# bounds: one H100 SXM's published FP32 rate outside the tensor cores and
+# HBM rate (at its 700 W limit), and the FLOPs of one pair as the JAX
+# kernels' cost estimates count them (pallas_nbody.py:443, :783,
+# pallas_tree.py:314): 50 with the jerk, 30 without, the rsqrt as one
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+PAIR_FLOPS = {True: 50, False: 30}
 
 
 def _line(phase: str, **kw) -> None:
@@ -96,6 +133,27 @@ def _rel_err(got, ref) -> float:
 
 def _abs_err(got, ref) -> float:
     return float((got.double() - ref.double()).abs().max())
+
+
+def _bound(pairs: float, with_jerk: bool, nbytes: float) -> dict:
+    """The least time the card could take for `pairs` pair interactions
+    that move `nbytes` (each input read once, each output written once):
+    the larger of the FLOPs over the FP32 rate and the bytes over the HBM
+    rate."""
+    ops_ms = 1e3 * pairs * PAIR_FLOPS[with_jerk] / FP32_FLOPS
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def _rows_bytes(b: int, n: int, with_jerk: bool, with_pot: bool) -> int:
+    """Bytes kernel 1 must move: rows (positions, ids; velocities with the
+    jerk), columns (positions, masses; velocities with the jerk) and the
+    outputs (acc; jerk, pot when asked for), all f32 / int32."""
+    per_row = 12 + 4 + (12 if with_jerk else 0)
+    per_col = 12 + 4 + (12 if with_jerk else 0)
+    out = 12 + (12 if with_jerk else 0) + (4 if with_pot else 0)
+    return b * (per_row + out) + n * per_col
 
 
 def _median_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -134,6 +192,24 @@ def phase_device():
     _line("device", name=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, tf32=tf32)
+    # a report for the port's io/ slice (its checkpoints are
+    # zstd-compressed); it checks nothing
+    _line("host packages", imports=_importable("zstandard", "tqdm",
+                                               "pandas"))
+
+
+def _importable(*names) -> dict:
+    """{name: True, or the error its import raised}."""
+    import importlib
+
+    out = {}
+    for name in names:
+        try:
+            importlib.import_module(name)
+            out[name] = True
+        except Exception as e:          # a report, not a phase
+            out[name] = f"{type(e).__name__}: {e}"
+    return out
 
 
 def phase_build():
@@ -221,7 +297,10 @@ def phase_kernels():
                 "source": "al26_tpu_torch/csrc/nbody.cu",
                 "replaces": "al26_tpu/ops/pallas_nbody.py:78",
                 "launches": 0, "max_abs_err": abs_err, "ms": t_k,
-                "plain_ms": t_p}
+                "plain_ms": t_p,
+                **_bound(N_KERNEL * (N_KERNEL - 1), True,
+                         _rows_bytes(N_KERNEL, N_KERNEL, True, True)),
+                "library_ms": None}
 
     # kernel 2: K = 256 fast rows against columns predicted to tau
     a0, j0 = a, j
@@ -248,11 +327,16 @@ def phase_kernels():
     bad2 = {k: v for k, v in errs2.items() if not v < PREDCOLS_TOL}
     if bad2:
         _fail(f"nbody_predcols disagrees with its plain version: {bad2}")
+    # predcols reads the step-start pos, vel, acc, jerk and mass of every
+    # column: 52 bytes each
     rec_pred = {"name": "nbody_predcols", "route": "cuda",
                 "source": "al26_tpu_torch/csrc/nbody.cu",
                 "replaces": "al26_tpu/ops/pallas_nbody.py:539",
                 "launches": 0, "max_abs_err": abs2, "ms": t_k2,
-                "plain_ms": t_p2}
+                "plain_ms": t_p2,
+                **_bound(256 * (N_KERNEL - 1), True,
+                         256 * (12 + 12 + 4 + 24) + 52 * N_KERNEL + 4),
+                "library_ms": None}
     return [rec_rows, rec_pred]
 
 
@@ -280,7 +364,8 @@ def phase_parity():
         out[dev + "_s"] = time.perf_counter() - t0
         if dev == "cpu" and any(launched.values()):
             _fail(f"the CPU run launched kernels: {launched}")
-        if dev == "cuda" and not all(launched.values()):
+        if dev == "cuda" and not (launched["nbody_rows"] > 0
+                                  and launched["nbody_predcols"] > 0):
             _fail(f"the card run missed a kernel: {launched}")
     g, r = out["cuda"], out["cpu"]
     pos_err = float(np.max(np.abs(g["pos"] - r["pos"])
@@ -453,11 +538,17 @@ def phase_near_field():
     if bad or overflow or not overflow_kavg1 or not same_bits:
         _fail(f"near_field: errors {bad}, overflow {overflow}, overflow at "
               f"kavg=1 {overflow_kavg1}, repeat same bits {same_bits}")
+    # the pairs the MAC asks for (each leaf pair L x L, less the N self
+    # pairs); the sorted stars in (28 bytes), acc / jerk / pot out (28),
+    # the packed pair list (two int32 a pair)
     return {"name": "near_field", "route": "cuda",
             "source": "al26_tpu_torch/csrc/tree.cu",
             "replaces": "al26_tpu/ops/pallas_tree.py:63",
             "launches": 0, "max_abs_err": abs_err, "ms": t_k,
-            "plain_ms": t_p}
+            "plain_ms": t_p,
+            **_bound(n_pairs * leaf * leaf - N_NEAR, True,
+                     56 * N_NEAR + 8 * n_pairs),
+            "library_ms": None}
 
 
 def phase_tree_accuracy():
@@ -786,6 +877,234 @@ def phase_tree_slice():
     return launches, kernel_checks
 
 
+def _ensemble(b: int, n: int, device, seed: int = 42):
+    """init_ensemble of b realizations of n stars (Plummer, rc = 1, f32,
+    integrator auto -> leapfrog at the ensemble boundary)."""
+    from al26_tpu_torch import SimConfig
+    from al26_tpu_torch.parallel.ensemble import init_ensemble
+
+    return init_ensemble(SimConfig(n=n, rc=1.0, seed=seed, dtype="f32"), b,
+                         device=device)
+
+
+def phase_group_kernel():
+    """The windowed kernel 1 against its f64 plain grouped version on the
+    initial states of both ensembles: full sweeps (jerk + raw potential;
+    acceleration only; acceleration + raw potential, the leapfrog path's
+    closing sweep), 512 scattered rows across the groups; returns the
+    kernels-line record (launches filled from phase 5c)."""
+    import numpy as np
+    import torch
+
+    from al26_tpu_torch.ops import cuda_nbody as cn
+
+    dev = torch.device("cuda")
+    d = lambda t: t.double()
+    rng = np.random.default_rng(5)
+    abs_err, rec = 0.0, None
+    for b, n, _, _ in ENSEMBLES:
+        bs, _, cfgs = _ensemble(b, n, dev)
+        eps2, total = cfgs[0].eps2, b * n
+        c = bs.cluster
+        pos, vel = c.pos.reshape(total, 3), c.vel.reshape(total, 3)
+        mass = c.mass.reshape(total)
+        ids = torch.arange(total, dtype=torch.int32, device=dev)
+        kw = dict(group_size=n)
+        modes = {"jerk_pot": dict(pot_eps2=1e-30),
+                 "acc": dict(with_jerk=False, with_pot=False),
+                 "acc_pot": dict(with_jerk=False, pot_eps2=1e-30)}
+        errs, times = {}, {}
+        ref_full = cn.nbody_rows_plain(d(pos), d(vel), ids, d(pos), d(vel),
+                                       d(mass), eps2, pot_eps2=1e-30, **kw)
+        for mode, mk in modes.items():
+            got = cn.nbody_rows(pos, vel, ids, pos, vel, mass, eps2, **mk,
+                                **kw)
+            again = cn.nbody_rows(pos, vel, ids, pos, vel, mass, eps2, **mk,
+                                  **kw)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                _fail(f"nbody_rows_group {b}x{n} {mode}: a repeat differs")
+            names = ("acc", "jerk", "pot")
+            keep = [0] + ([1] if mk.get("with_jerk", True) else []) + (
+                [2] if mk.get("with_pot", True) else [])
+            for i in keep:
+                errs[f"{mode}_{names[i]}"] = _rel_err(got[i], ref_full[i])
+                abs_err = max(abs_err, _abs_err(got[i], ref_full[i]))
+            times[mode + "_ms"] = _median_ms(
+                lambda: cn.nbody_rows(pos, vel, ids, pos, vel, mass, eps2,
+                                      **mk, **kw), 10)
+        # scattered rows across the groups (hermite4_block's fast rows)
+        sel = torch.as_tensor(np.sort(rng.choice(total, 512, replace=False)),
+                              dtype=torch.int32, device=dev)
+        sel = sel[torch.as_tensor(rng.permutation(512), device=dev)]
+        rp, rv = pos[sel].contiguous(), vel[sel].contiguous()
+        got = cn.nbody_rows(rp, rv, sel, pos, vel, mass, eps2,
+                            with_pot=False, **kw)
+        ref = cn.nbody_rows_plain(d(rp), d(rv), sel, d(pos), d(vel),
+                                  d(mass), eps2, with_pot=False, **kw)
+        errs_rows = {"rows512_acc": _rel_err(got[0], ref[0]),
+                     "rows512_jerk": _rel_err(got[1], ref[1])}
+        abs_err = max(abs_err, _abs_err(got[0], ref[0]),
+                      _abs_err(got[1], ref[1]))
+        times["rows512_ms"] = _median_ms(
+            lambda: cn.nbody_rows(rp, rv, sel, pos, vel, mass, eps2,
+                                  with_pot=False, **kw), 20)
+        mk = modes["acc_pot"]
+        t_plain = _median_ms(lambda: cn.nbody_rows_plain(
+            pos, vel, ids, pos, vel, mass, eps2, **mk, **kw), 3, warmup=1)
+        pairs = b * n * (n - 1)
+        bound = _bound(pairs, False, _rows_bytes(total, total, False, True))
+        _line("kernel nbody_rows_group", realizations=b, n=n, eps2=eps2,
+              groups_spanned_by_rows=int(torch.unique(
+                  sel.long() // n).numel()),
+              rel_err={**errs, **errs_rows},
+              tol={"full": KERNEL_TOL, "rows": PREDCOLS_TOL},
+              max_abs_err=abs_err, **times, acc_pot_plain_f32_ms=t_plain,
+              useful_gpairs_per_s=pairs / (times["acc_pot_ms"] * 1e6),
+              **bound)
+        bad = {k: v for k, v in errs.items() if not v < KERNEL_TOL}
+        bad.update({k: v for k, v in errs_rows.items()
+                    if not v < PREDCOLS_TOL})
+        if bad:
+            _fail(f"nbody_rows_group {b}x{n} disagrees with its plain "
+                  f"version: {bad}")
+        if rec is None:
+            # the record: the leapfrog path's closing sweep (acceleration
+            # and raw potential) of the reference campaign's 64 x 1000
+            rec = {"name": "nbody_rows_group", "route": "cuda",
+                   "source": "al26_tpu_torch/csrc/nbody.cu",
+                   "replaces": "al26_tpu/ops/pallas_nbody.py:121",
+                   "launches": 0, "max_abs_err": 0.0,
+                   "ms": times["acc_pot_ms"], "plain_ms": t_plain, **bound,
+                   "library_ms": None}
+    rec["max_abs_err"] = abs_err
+    return rec
+
+
+def phase_ensemble_parity():
+    """A flat ensemble on the card (group windows, force cache) against
+    the same ensemble on the CPU (per-realization dense forces), from the
+    same initial bits: B = 4, n = 256, 3 steps, the bars of phase 4."""
+    import numpy as np
+
+    from al26_tpu_torch.parallel.ensemble import ensemble_run_steps
+    from al26_tpu_torch.state import cluster_to_numpy
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        bs, ba, cfgs = _ensemble(4, 256, dev, seed=5)
+        _reset_launches()
+        t0 = time.perf_counter()
+        s = ensemble_run_steps(bs, ba, cfgs[0], 3, flat=True)
+        out[dev] = cluster_to_numpy(s.cluster)
+        out[dev + "_s"] = time.perf_counter() - t0
+        launched = _launches()
+        if dev == "cpu" and any(launched.values()):
+            _fail(f"the CPU ensemble launched kernels: {launched}")
+        if dev == "cuda" and not launched["nbody_rows_group"] > 0:
+            _fail(f"the card's ensemble missed the group window: {launched}")
+    g, r = out["cuda"], out["cpu"]
+    pos_err = float(np.max(np.abs(g["pos"] - r["pos"])
+                           / (2e-5 + 2e-4 * np.abs(r["pos"]))))
+    slr_err = float(np.max(np.abs(g["slr"] - r["slr"])
+                           / (1e-30 + 2e-3 * np.abs(r["slr"]))))
+    mass_same = bool(np.array_equal(g["mass"], r["mass"]))
+    _line("ensemble parity", realizations=4, n=256, steps=3,
+          integrator=cfgs[0].integrator, n_sub=cfgs[0].leapfrog_n_sub,
+          pos_err_over_bar=pos_err, slr_err_over_bar=slr_err,
+          mass_exact=mass_same, cuda_s=out["cuda_s"], cpu_s=out["cpu_s"])
+    if not (pos_err <= 1.0 and slr_err <= 1.0 and mass_same):
+        _fail("the card's ensemble disagrees with the CPU's")
+
+
+def phase_ensemble_slice(b: int, n: int, steps: int, chunks) -> dict:
+    """The slice: init_ensemble, ensemble_fresh_cache, then
+    ensemble_run_steps_cached in checkpoint-sized chunks; returns the
+    launches of that run (counts set to 0 just before it)."""
+    import torch
+
+    from al26_tpu_torch.ops import cuda_nbody as cn
+    from al26_tpu_torch.parallel import ensemble as ens
+    from al26_tpu_torch.units import G_INTERNAL
+
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter()
+    bs, ba, cfgs = _ensemble(b, n, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_init
+    cfg = cfgs[0]
+    if cfg.integrator != "leapfrog":
+        _fail(f"the ensemble resolved {cfg.integrator}, expected leapfrog")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = ens.ensemble_fresh_cache(bs, cfg)
+    for chunk in chunks:
+        bs, cache = ens.ensemble_run_steps_cached(bs, cache, ba, cfg, chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    checks = {}
+    for k in range(b):
+        ck, _ = _state_checks(ens._take(bs, k), cfg, steps)
+        for name, ok in ck.items():
+            checks[name] = checks.get(name, True) and ok
+    checks["cache_finite"] = all(bool(torch.isfinite(x).all())
+                                 for x in cache)
+    checks["rows_group_launched"] = launches["nbody_rows_group"] > 0
+    checks["only_the_window"] = not any(
+        v for k, v in launches.items() if k != "nbody_rows_group")
+
+    # the per-realization physics alone, on the final state (same shapes
+    # as in the run), and the windowed closing sweep there against its f64
+    # plain version; after the counts were read
+    c = bs.cluster
+    pot = cache[2].reshape(b, n)
+    mtot = c.mass.sum(1)
+    r_vir = -G_INTERNAL * mtot * mtot / (c.mass * pot).sum(1)
+
+    def physics():
+        ens.ensemble_physics_after_advance(bs, ba, cfg, c.pos, c.pos, c.vel,
+                                           r_vir)
+        torch.cuda.synchronize()
+
+    physics()
+    reps = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        physics()
+        reps.append(time.perf_counter() - t1)
+    physics_ms = 1e3 * sorted(reps)[1]
+    total = b * n
+    pos, mass = c.pos.reshape(total, 3), c.mass.reshape(total)
+    ids = torch.arange(total, dtype=torch.int32, device=dev)
+    got = cn.nbody_rows(pos, pos, ids, pos, pos, mass, cfg.eps2,
+                        with_jerk=False, pot_eps2=1e-30, group_size=n)
+    ref = cn.nbody_rows_plain(pos.double(), pos.double(), ids, pos.double(),
+                              pos.double(), mass.double(), cfg.eps2,
+                              with_jerk=False, pot_eps2=1e-30, group_size=n)
+    final_err = {"acc": _rel_err(got[0], ref[0]),
+                 "pot": _rel_err(got[2], ref[2])}
+    checks["final_sweep_matches_plain"] = all(
+        v < KERNEL_TOL for v in final_err.values())
+    step_ms = 1e3 * wall / steps
+    _line("ensemble slice", realizations=b, n=n, steps=steps,
+          integrator=cfg.integrator, n_sub=cfg.leapfrog_n_sub,
+          init_s=t_init, wall_s=wall, s_per_myr=wall / (steps * cfg.dt),
+          step_ms=step_ms, physics_ms=physics_ms,
+          advance_and_cache_ms=step_ms - physics_ms,
+          launches=launches, peak_mem_gb=peak_gb,
+          final_sweep_rel_err=final_err,
+          wind_total=float(c.slr[:, :, :, 0:2].sum()), checks=checks)
+    if not all(checks.values()):
+        _fail(f"ensemble {b}x{n}: "
+              f"{[k for k, v in checks.items() if not v]} failed")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -812,18 +1131,24 @@ def main() -> int:
     phase_build()
     records = phase_kernels()
     records.append(phase_near_field())
+    group = phase_group_kernel()
     phase_parity()
+    phase_ensemble_parity()
     phase_tree_accuracy()
     phase_tree_parity()
     phase_slice(8192, "hermite4")
     phase_slice(32768, "hermite4_block")
     tree, checked = phase_tree_slice()
-    # launches: from the N_TREE tree-tier run, which exercises all three;
-    # the error: the worst of the kernel phases and that run's shapes
+    ensembles = [phase_ensemble_slice(*e) for e in ENSEMBLES]
+    # launches: kernels 1-3 from the N_TREE tree-tier run, which exercises
+    # all three, the error the worst of the kernel phases and that run's
+    # shapes; the group window from the 64 x 1000 ensemble
     for rec in records:
         rec["launches"] = tree[rec["name"]]
         rec["max_abs_err"] = max(rec["max_abs_err"],
                                  checked[rec["name"]]["max_abs_err"])
+    group["launches"] = ensembles[0]["nbody_rows_group"]
+    records.append(group)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -257,12 +257,13 @@ def test_physics_after_advance_matches_jax_step():
         js, ja, jcfg, J(pos_old), J(pos), J(vel), J(0.8))
 
     ts = state_from_numpy(jax_to_numpy(js.cluster), np.asarray(js.time),
-                          np.asarray(js.step_count), dtype=torch.float64)
+                          np.asarray(js.step_count), dtype=torch.float64,
+                          device="cpu")
     aux_np = {f: np.asarray(getattr(ja, f))
               for f in ("hm_idx", "hm_slot_valid", "msrc_idx", "msrc_valid",
                         "agb_grid_t", "agb_grid_rates", "kick_vel")}
     aux_np["stellar_tbl"] = [np.asarray(a) for a in ja.stellar_tbl]
-    ta = aux_from_numpy(aux_np)
+    ta = aux_from_numpy(aux_np, device="cpu")
     out_t = physics_after_advance(ts, ta, tcfg, T(pos_old), T(pos), T(vel),
                                   T(0.8))
     a, b = jax_to_numpy(out_j.cluster), cluster_to_numpy(out_t.cluster)

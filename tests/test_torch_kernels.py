@@ -190,7 +190,8 @@ def test_predcols_plus_override_matches_pallas(jx):
 
 def test_wrappers_check_arguments():
     """dtype, shape and contiguity are checked before any launch; the
-    modes not ported raise NotImplementedError."""
+    mode not ported (use_mxu) raises NotImplementedError; the group
+    windows run their plain version on the CPU."""
     pos, vel, mass = (T(a) for a in _system(64, seed=1))
     ids = torch.arange(64, dtype=torch.int32)
     with pytest.raises(TypeError):
@@ -201,11 +202,13 @@ def test_wrappers_check_arguments():
         cn.nbody_rows(pos.t().contiguous().t(), vel, ids, pos, vel, mass,
                       1e-3)
     with pytest.raises(NotImplementedError):
-        cn.kernel_acc_jerk_pot(pos, vel, mass, 1e-3, group_size=32)
-    with pytest.raises(NotImplementedError):
         cn.kernel_acc_jerk_pot(pos, vel, mass, 1e-3, use_mxu=True)
+    with pytest.raises(NotImplementedError):
+        cn.kernel_acc_jerk_pot(pos, vel, mass, 1e-3, group_size=32,
+                               use_mxu=True)
     before = dict(cn.LAUNCHES)
     cn.kernel_acc_jerk_pot(pos, vel, mass, 1e-3)
+    cn.kernel_acc_jerk_pot(pos, vel, mass, 1e-3, group_size=32)
     assert cn.LAUNCHES == before      # the CPU path launches nothing
     assert not cn.use_kernel(64, torch.float32, "cpu")
     assert cn.use_kernel(64, torch.float32, "cuda")

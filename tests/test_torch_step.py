@@ -45,11 +45,12 @@ def _both(**kw):
     js, ja, jcfg = jax_init(JaxConfig(**kw))
     dtype = torch.float64 if jcfg.dtype == "f64" else torch.float32
     ts = state_from_numpy(jax_to_numpy(js.cluster), np.asarray(js.time),
-                          np.asarray(js.step_count), dtype=dtype)
+                          np.asarray(js.step_count), dtype=dtype,
+                          device="cpu")
     aux_np = {f: np.asarray(getattr(ja, f)) for f in _AUX}
     aux_np["stellar_tbl"] = [np.asarray(a) for a in ja.stellar_tbl]
     tcfg = SimConfig.from_dict(jcfg.to_dict())
-    return (js, ja, jcfg), (ts, aux_from_numpy(aux_np), tcfg)
+    return (js, ja, jcfg), (ts, aux_from_numpy(aux_np, device="cpu"), tcfg)
 
 
 def _close(got, want, rtol, atol_scale):
