@@ -8,11 +8,13 @@ field as hand-written CUDA kernels for Hopper (ops/cuda_nbody.py,
 ops/cuda_tree.py, csrc/). Same module layout and public names as
 al26_tpu; plain functions on tensors with an explicit device.
 
-The ported slice is the single-cluster, single-device run through the
-library API, Plummer or fractal initial conditions, exact direct
-summation or force_impl="tree": sim.init_cluster, then sim.run_steps /
-sim.run_steps_cached; and ensembles of realizations on one device
-(parallel.ensemble: init_ensemble, then ensemble_run_steps or
+The ported slice is the single-device run: the command line (cli, `python
+-m al26_tpu_torch.cli`), the run driver with the JAX package's checkpoint
+files, resume and extension (sim.driver.run / run_ensemble, io), and the
+library API beneath it, Plummer or fractal initial conditions, exact
+direct summation or force_impl="tree": sim.init_cluster, then
+sim.run_steps / sim.run_steps_cached; and ensembles of realizations on
+one device (parallel.ensemble: init_ensemble, then ensemble_run_steps or
 ensemble_fresh_cache + ensemble_run_steps_cached), whose flattened step
 sweeps block-diagonal groups through kernel 1's group windows.
 """

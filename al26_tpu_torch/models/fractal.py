@@ -144,8 +144,11 @@ def _potential_energy(pos: np.ndarray, mass: np.ndarray, *, device,
     p = torch.as_tensor(pos, dtype=dtype, device=device)
     m = torch.as_tensor(mass, dtype=dtype, device=device)
     if cuda_nbody.use_kernel(len(p), dtype, device):
+        # the FMA body: only the potential is wanted, and at eps2 = 1e-30
+        # the matmul body's unsoftened weights would only cost
         _, _, pot = cuda_nbody.kernel_acc_jerk_pot(
-            p, torch.zeros_like(p), m, 1e-30, with_jerk=False)
+            p, torch.zeros_like(p), m, 1e-30, with_jerk=False,
+            use_mxu=False)
     else:
         from ..ops.nbody import potential_chunked
 

@@ -30,9 +30,8 @@ uncached step() raises ValueError (the JAX package's uncached step
 silently opens geometrically there).
 
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
-the device-mesh backends ("sharded", "ring", any mesh), the gravity
-stride (gravity_stride > 1 where it would engage) and the trajectory
-runners.
+the device-mesh backends ("sharded", "ring", any mesh) and the gravity
+stride (gravity_stride > 1 where it would engage).
 """
 from __future__ import annotations
 
@@ -45,7 +44,8 @@ from ..ops import cuda_nbody
 from ..ops import deposition as dep
 from ..ops.integrators import advance
 from ..ops.nbody import (
-    acc_jerk_pot_chunked, mass_delta_correction, virial_radius,
+    acc_jerk_pot_chunked, center_of_mass, mass_delta_correction,
+    virial_radius,
 )
 from ..state import CH_AGB, CH_GLOBAL, CH_LOCAL, CH_SNE, SimState
 from ..units import G_INTERNAL
@@ -53,8 +53,7 @@ from .init import SimAux
 
 _MESH_TODO = ("ROADMAP queue 1, the multi-device axes "
               "(parallel/sharded.py, ring.py, tree_mesh.py)")
-_LADDER_TODO = ("ROADMAP queue 1, the opt-in ladder (gravity_stride, "
-                "trajectory runners)")
+_LADDER_TODO = "ROADMAP queue 1, the opt-in ladder (gravity_stride)"
 
 
 def _not_ported(what: str, item: str):
@@ -519,11 +518,50 @@ def run_steps_cached_strided(*args, **kwargs):
                       _LADDER_TODO)
 
 
-def run_steps_traj(*args, **kwargs):
-    raise _not_ported("run_steps_traj (interloper trajectory runner)",
-                      _LADDER_TODO)
+def _traj_row(s_old: SimState, s_new: SimState, cfg: SimConfig):
+    """One interloper-trajectory row (al26_nbody.py:1030-1037):
+    (t_sim, t_interloper, x, y, z, barycentre distance), on the device."""
+    c = s_new.cluster
+    pos_int = c.pos[-1]
+    com = center_of_mass(c.pos, c.mass)
+    bary_dist = torch.sqrt(torch.sum((pos_int - com) ** 2))
+    t_int = s_old.time - torch.as_tensor(cfg.interloper_offset_time,
+                                         dtype=c.pos.dtype,
+                                         device=c.pos.device)
+    return torch.cat([s_old.time[None], t_int[None], pos_int,
+                      bary_dist[None]])
 
 
-def run_steps_traj_cached(*args, **kwargs):
-    raise _not_ported("run_steps_traj_cached (interloper trajectory "
-                      "runner)", _LADDER_TODO)
+def run_steps_traj(state: SimState, aux: SimAux, cfg: SimConfig,
+                   n_steps: int, mesh=None, force_impl: str = "auto"):
+    """Like run_steps without the force cache, additionally collecting the
+    interloper trajectory per step: (t_sim, t_interloper, x, y, z,
+    barycentre distance) — the data the reference appends to
+    interloper_trajectory.dat each step (al26_nbody.py:1030-1037).
+    Returns (state, rows [n_steps, 6]) with the rows on the device."""
+    rows = []
+    for _ in range(n_steps):
+        s_new = step(state, aux, cfg, mesh, force_impl)
+        rows.append(_traj_row(state, s_new, cfg))
+        state = s_new
+    return state, _stack_rows(rows, state)
+
+
+def run_steps_traj_cached(state: SimState, cache, aux: SimAux,
+                          cfg: SimConfig, n_steps: int, mesh=None,
+                          force_impl: str = "auto"):
+    """run_steps_traj carrying the cross-step force cache, as
+    run_steps_cached does. Returns (state, cache, rows)."""
+    rows = []
+    for _ in range(n_steps):
+        s_new, cache = _step_impl(state, aux, cfg, mesh, force_impl, cache)
+        rows.append(_traj_row(state, s_new, cfg))
+        state = s_new
+    return state, cache, _stack_rows(rows, state)
+
+
+def _stack_rows(rows, state: SimState):
+    if rows:
+        return torch.stack(rows)
+    c = state.cluster
+    return torch.zeros((0, 6), dtype=c.pos.dtype, device=c.pos.device)

@@ -79,13 +79,43 @@ The flattened ensembles (parallel.ensemble, kernel 1's group windows):
               windowed closing sweep on the final state against its f64
               plain version.
 
-The run order: 1, 2, 3, 3b, 3c, 4, 4d, 4b, 4c, 5, 5b, 5c.
+The matmul reduction (use_mxu=True, the default of every single-cluster
+sweep, as in the JAX package) and the entry path of a user:
+
+  3d. kernel mma  kernels 1c / 2c (nbody_rows_mma, nbody_predcols_mma)
+              against their f64 plain decomposition on Plummer clusters
+              from init_cluster: kernel 1's full sweep (jerk + raw
+              potential) at N = 32768 and 131072, the uncached sweep at
+              eps2 = 0.125 (potential through the product), the
+              acceleration-only sweep and 256 scattered rows at 32768;
+              kernel 2 at K = 256, tau != 0. Bars: 3e-4 of the max (kernel
+              1), 5e-4 (kernel 2), 1e-4 (potential through the product),
+              1e-5 (explicit potential); the same bits on a repeat; median
+              times beside the FMA bodies' and the f32 plain versions';
+  6.  cli     `python -m al26_tpu_torch.cli -n 1000 -rc 1 -t_f 1 --dtype
+              f32 --seed 42 -f smoke -v` in a subprocess in a temporary
+              directory (1000 steps, 102 saves): the state, yields and CSV
+              files and their counts, wall time and s/Myr with the saves,
+              the invariants of the last state; then `-r smoke -nc 50`, its
+              final state against the uninterrupted run's at the bars of
+              phase 4 (and whether the bits matched);
+  6b. driver  sim.driver.run at N = 32768, f32, 20 steps, 4 state files:
+              the matmul kernels launched, the FMA bodies not, s/Myr with
+              the saves beside phase 5's, the seconds in the saves;
+  6c. ensemble driver  sim.driver.run_ensemble, 64 x 1000, 20 steps: the
+              64 pt-<k> folders and their files, s/Myr with the saves.
+
+The run order: 1, 2, 3, 3d, 3b, 3c, 4, 4d, 4b, 4c, 5, 5b, 5c, 6, 6b, 6c.
 
 Then one JSON line with every kernel's launches (kernels 1-3 from phase 5b,
-the windowed kernel from the 64 x 1000 run of phase 5c), error (the largest
-of its comparisons), times, and the least time the card could take for the
-same work (bound_ms: the larger of the FLOPs over the FP32 peak and the
-bytes over the HBM rate; bound_by says which), and last the line
+the windowed kernel from the 64 x 1000 run of phase 5c, the matmul kernels
+from phase 6b), error (the largest of its comparisons), times, and the
+least time the card could take for the same work (bound_ms: the larger of
+the operations over their peak rate and the bytes over the HBM rate;
+bound_by says which; the FMA bodies' FLOPs at the FP32 rate, the matmul
+bodies' FP32 work outside the tensor cores at the FP32 rate or their
+3xTF32 products at the TF32 rate, whichever is longer, over the same
+pairs), and last the line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -102,6 +132,12 @@ N_NEAR = 131072
 N_TREE = 409600
 KERNEL_TOL = 1e-5
 PREDCOLS_TOL = 2e-5
+# the matmul reductions' bars, the JAX package's own (tests/test_pallas.py:
+# 3e-4 of the max for kernel 1, 5e-4 for kernel 2, 1e-4 for the potential
+# through the product; an explicit potential keeps KERNEL_TOL)
+MMA_TOL = 3e-4
+PRED_MMA_TOL = 5e-4
+MMA_POT_TOL = 1e-4
 # the tree's accuracy bars at theta = 0.75 on fractal ICs (the JAX
 # package's own measurement: median 7.3e-3, p99 3.5e-2, docs/precision.md)
 TREE_MEDIAN_TOL = 1e-2
@@ -115,6 +151,14 @@ ENSEMBLES = ((64, 1000, 20, (10, 10)), (8, 10240, 5, (5,)))
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 PAIR_FLOPS = {True: 50, False: 30}
+# the matmul bodies: the TF32 tensor-core rate, the FP32 work a pair needs
+# outside the tensor cores (dx and d2: 8; the softening, rsqrt and w =
+# m / r^3: 5; with the jerk dv, dx.dv, / r^2 and w s: 10; a separately
+# softened potential's add, rsqrt, product and sum: 4) and the flops of
+# one pair in one C8 product (8 multiply-adds), issued three times (3xTF32)
+TF32_FLOPS = 495e12
+MMA_PAIR_FP32 = {"acc": 13, "jerk": 10, "pot_separate": 4}
+MMA_PRODUCT_FLOPS = 3 * 16
 
 
 def _line(phase: str, **kw) -> None:
@@ -141,6 +185,24 @@ def _bound(pairs: float, with_jerk: bool, nbytes: float) -> dict:
     the larger of the FLOPs over the FP32 rate and the bytes over the HBM
     rate."""
     ops_ms = 1e3 * pairs * PAIR_FLOPS[with_jerk] / FP32_FLOPS
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def _bound_mma(pairs: float, with_jerk: bool, pot_separate: bool,
+               nbytes: float) -> dict:
+    """_bound for a matmul body: its FP32 work outside the tensor cores at
+    the FP32 rate or its 3xTF32 C8 products (two with the jerk) at the
+    TF32 rate, whichever takes longer, against the bytes over the HBM
+    rate. The per-column work (centring, C8, kernel 2's prediction) is
+    under 1 % of the per-pair work at these shapes and is left out."""
+    fp32 = (MMA_PAIR_FP32["acc"] + (MMA_PAIR_FP32["jerk"] if with_jerk
+                                    else 0)
+            + (MMA_PAIR_FP32["pot_separate"] if pot_separate else 0))
+    products = 2 if with_jerk else 1
+    ops_ms = 1e3 * pairs * max(fp32 / FP32_FLOPS,
+                               products * MMA_PRODUCT_FLOPS / TF32_FLOPS)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
@@ -340,6 +402,153 @@ def phase_kernels():
     return [rec_rows, rec_pred]
 
 
+def phase_kernel_mma():
+    """The matmul reductions (use_mxu=True, the default of every
+    single-cluster sweep) against their f64 plain versions, the same
+    decomposition in f64: kernel 1's full sweep with jerk and the raw
+    potential at N_KERNEL and N_NEAR, the uncached sweep at eps2 = 0.125
+    (potential through the product), the acceleration-only sweep and 256
+    scattered rows at N_KERNEL, kernel 2 at K = 256 and tau != 0. The same
+    bits on a repeat; median times beside the FMA body's and the f32 plain
+    version's at the same shapes. Returns the kernels-line records of rows
+    1c and 2c (launches filled from phase 6b)."""
+    import numpy as np
+    import torch
+
+    from al26_tpu_torch import SimConfig
+    from al26_tpu_torch.ops import cuda_nbody as cn
+    from al26_tpu_torch.sim import init_cluster
+
+    dev = torch.device("cuda")
+    d = lambda t: t.double()
+    errs, times = {}, {}
+    abs_err = {"nbody_rows_mma": 0.0, "nbody_predcols_mma": 0.0}
+    repeat_same = True
+
+    def hold(name, fn, ref_fn, bars, kernel="nbody_rows_mma"):
+        """Run fn twice (same bits?), hold it against ref_fn's f64
+        result, per output, at bars (None: not compared); the largest
+        absolute error goes to `kernel`'s record."""
+        nonlocal repeat_same
+        got, again = fn(), fn()
+        repeat_same &= all(torch.equal(x, y) for x, y in zip(got, again))
+        ref = ref_fn()
+        for out, g, r, bar in zip(("acc", "jerk", "pot"), got, ref, bars):
+            if bar is not None:
+                errs[f"{name}_{out}"] = (_rel_err(g, r), bar)
+                abs_err[kernel] = max(abs_err[kernel], _abs_err(g, r))
+
+    for n in (N_KERNEL, N_NEAR):
+        cfg = SimConfig(n=n, rc=1.0, seed=7, dtype="f32")
+        state, _, cfg = init_cluster(cfg, device=dev)
+        c = state.cluster
+        pos, vel, mass, eps2 = c.pos, c.vel, c.mass, cfg.eps2
+        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        full = dict(pot_eps2=1e-30)
+
+        def sweep(mxu, p=pos, v=vel, m=mass, **kw):
+            return lambda: cn.nbody_rows(p, v, ids, p, v, m, eps2,
+                                         use_mxu=mxu, **{**full, **kw})
+
+        hold(f"full{n}", sweep(True),
+             lambda: cn.nbody_rows_plain(d(pos), d(vel), ids, d(pos), d(vel),
+                                         d(mass), eps2, use_mxu=True, **full),
+             (MMA_TOL, MMA_TOL, KERNEL_TOL))
+        times[f"full{n}_ms"] = _median_ms(sweep(True), 10)
+        times[f"full{n}_fma_ms"] = _median_ms(sweep(False), 10)
+        if n != N_KERNEL:
+            continue
+        times[f"full{n}_plain_f32_ms"] = _median_ms(
+            lambda: cn.nbody_rows_plain(pos, vel, ids, pos, vel, mass, eps2,
+                                        use_mxu=True, **full), 3, warmup=1)
+        # the uncached sweep: the potential through the product
+        prod = lambda mxu: (lambda: cn.nbody_rows(
+            pos, vel, ids, pos, vel, mass, 0.125, use_mxu=mxu))
+        hold("uncached", prod(True),
+             lambda: cn.nbody_rows_plain(d(pos), d(vel), ids, d(pos), d(vel),
+                                         d(mass), 0.125, use_mxu=True),
+             (MMA_TOL, MMA_TOL, MMA_POT_TOL))
+        times["uncached_ms"] = _median_ms(prod(True), 10)
+        times["uncached_fma_ms"] = _median_ms(prod(False), 10)
+        # the acceleration-only sweep (leapfrog)
+        accf = lambda mxu: sweep(mxu, with_jerk=False, with_pot=False,
+                                 pot_eps2=None)
+        hold("acc", accf(True),
+             lambda: cn.nbody_rows_plain(d(pos), d(vel), ids, d(pos), d(vel),
+                                         d(mass), eps2, with_jerk=False,
+                                         with_pot=False, use_mxu=True),
+             (MMA_TOL, None, None))
+        times["acc_ms"] = _median_ms(accf(True), 10)
+        times["acc_fma_ms"] = _median_ms(accf(False), 10)
+        # 256 scattered rows (the fast-group row sweep)
+        rng = np.random.default_rng(3)
+        sel = torch.as_tensor(rng.choice(n, 256, replace=False),
+                              dtype=torch.int32, device=dev)
+        rp, rv = pos[sel].contiguous(), vel[sel].contiguous()
+        rows = lambda mxu: (lambda: cn.nbody_rows(
+            rp, rv, sel, pos, vel, mass, eps2, with_pot=False,
+            use_mxu=mxu))
+        hold("rows256", rows(True),
+             lambda: cn.nbody_rows_plain(d(rp), d(rv), sel, d(pos), d(vel),
+                                         d(mass), eps2, with_pot=False,
+                                         use_mxu=True),
+             (MMA_TOL, MMA_TOL, None))
+        times["rows256_ms"] = _median_ms(rows(True), 20)
+        times["rows256_fma_ms"] = _median_ms(rows(False), 20)
+        # kernel 2: K = 256 rows against columns predicted to tau
+        a0, j0, _ = cn.nbody_rows(pos, vel, ids, pos, vel, mass, eps2)
+        tau = torch.tensor(0.5 * cfg.dt, dtype=torch.float32, device=dev)
+        pf, vf = cn.predict_columns(pos[sel], vel[sel], a0[sel], j0[sel],
+                                    tau)
+        pf = (pf + 1e-4 * torch.as_tensor(rng.normal(size=(256, 3)),
+                                          dtype=torch.float32,
+                                          device=dev)).contiguous()
+        vf = vf.contiguous()
+        pred = lambda mxu: (lambda: cn.nbody_predcols(
+            pf, vf, sel, pos, vel, a0, j0, mass, tau, eps2, use_mxu=mxu))
+        hold("predcols256", pred(True),
+             lambda: cn.nbody_predcols_plain(d(pf), d(vf), sel, d(pos),
+                                             d(vel), d(a0), d(j0), d(mass),
+                                             d(tau), eps2, use_mxu=True),
+             (PRED_MMA_TOL, PRED_MMA_TOL), kernel="nbody_predcols_mma")
+        times["predcols256_ms"] = _median_ms(pred(True), 20)
+        times["predcols256_fma_ms"] = _median_ms(pred(False), 20)
+        times["predcols256_plain_f32_ms"] = _median_ms(
+            lambda: cn.nbody_predcols_plain(pf, vf, sel, pos, vel, a0, j0,
+                                            mass, tau, eps2, use_mxu=True), 5)
+    torch.cuda.synchronize()
+    bad = {k: v for k, (v, bar) in errs.items() if not v < bar}
+    _line("kernel mma", n=[N_KERNEL, N_NEAR],
+          rel_err={k: v for k, (v, _) in errs.items()},
+          tol={k: bar for k, (_, bar) in errs.items()},
+          max_abs_err=abs_err, repeat_same_bits=repeat_same, **times,
+          fma_over_mma_full=times[f"full{N_KERNEL}_fma_ms"]
+          / times[f"full{N_KERNEL}_ms"])
+    if bad or not repeat_same:
+        _fail(f"matmul kernels: errors over their bars {bad}, repeat same "
+              f"bits {repeat_same}")
+    rec_rows = {"name": "nbody_rows_mma", "route": "cuda",
+                "source": "al26_tpu_torch/csrc/nbody.cu",
+                "replaces": "al26_tpu/ops/pallas_nbody.py:209",
+                "launches": 0, "max_abs_err": abs_err["nbody_rows_mma"],
+                "ms": times[f"full{N_KERNEL}_ms"],
+                "plain_ms": times[f"full{N_KERNEL}_plain_f32_ms"],
+                **_bound_mma(N_KERNEL * (N_KERNEL - 1), True, True,
+                             _rows_bytes(N_KERNEL, N_KERNEL, True, True)),
+                "library_ms": None}
+    rec_pred = {"name": "nbody_predcols_mma", "route": "cuda",
+                "source": "al26_tpu_torch/csrc/nbody.cu",
+                "replaces": "al26_tpu/ops/pallas_nbody.py:632",
+                "launches": 0,
+                "max_abs_err": abs_err["nbody_predcols_mma"],
+                "ms": times["predcols256_ms"],
+                "plain_ms": times["predcols256_plain_f32_ms"],
+                **_bound_mma(256 * (N_KERNEL - 1), True, False,
+                             256 * (12 + 12 + 4 + 24) + 52 * N_KERNEL + 4),
+                "library_ms": None}
+    return [rec_rows, rec_pred]
+
+
 def phase_parity():
     """The slice on the card against the slice on the CPU."""
     import numpy as np
@@ -364,8 +573,8 @@ def phase_parity():
         out[dev + "_s"] = time.perf_counter() - t0
         if dev == "cpu" and any(launched.values()):
             _fail(f"the CPU run launched kernels: {launched}")
-        if dev == "cuda" and not (launched["nbody_rows"] > 0
-                                  and launched["nbody_predcols"] > 0):
+        if dev == "cuda" and not (launched["nbody_rows_mma"] > 0
+                                  and launched["nbody_predcols_mma"] > 0):
             _fail(f"the card run missed a kernel: {launched}")
     g, r = out["cuda"], out["cpu"]
     pos_err = float(np.max(np.abs(g["pos"] - r["pos"])
@@ -410,14 +619,16 @@ def phase_slice(n: int, expect_integ: str):
     launches = dict(cn.LAUNCHES)
     steps = 20
     if integ == "hermite4":
-        substeps = (launches["nbody_rows"] - 1) / steps
+        substeps = (launches["nbody_rows_mma"] - 1) / steps
     else:
-        substeps = launches["nbody_predcols"] / steps
+        substeps = launches["nbody_predcols_mma"] / steps
 
     checks, host = _state_checks(state, cfg, steps)
-    checks["rows_launched"] = launches["nbody_rows"] > 0
-    checks["predcols_launched"] = (integ != "hermite4_block"
-                                   or launches["nbody_predcols"] > 0)
+    checks["rows_mma_launched"] = launches["nbody_rows_mma"] > 0
+    checks["predcols_mma_launched"] = (integ != "hermite4_block"
+                                       or launches["nbody_predcols_mma"] > 0)
+    checks["fma_bodies_idle"] = not (launches["nbody_rows"]
+                                     or launches["nbody_predcols"])
     sim_myr = steps * cfg.dt
     _line("slice", n=n, integrator=integ, k_fast=cfg.k_fast,
           init_s=t_init, wall_s=wall, s_per_myr=wall / sim_myr,
@@ -425,16 +636,29 @@ def phase_slice(n: int, expect_integ: str):
           wind_total=float(host["slr"][:, :, 0:2].sum()), checks=checks)
     if not all(checks.values()):
         _fail(f"n={n}: {[k for k, v in checks.items() if not v]} failed")
-    return launches
+    return wall / sim_myr
+
+
+def _host_invariants(host) -> dict:
+    """The physics invariants of a cluster as a numpy dict: finite
+    positions / velocities / reservoirs, non-negative reservoirs, wind only
+    on disc stars (0.1-3 Msun, not the interloper)."""
+    import numpy as np
+
+    lm = (host["mass"] >= 0.1) & (host["mass"] <= 3.0)
+    lm &= ~host["is_interloper"]
+    wind_off_disc = np.any(host["slr"][:, :, 0:2] != 0.0, axis=(1, 2)) & ~lm
+    return {"finite": bool(np.isfinite(host["pos"]).all()
+                           and np.isfinite(host["vel"]).all()
+                           and np.isfinite(host["slr"]).all()),
+            "slr_nonneg": bool((host["slr"] >= 0).all()),
+            "wind_on_discs_only": not bool(wind_off_disc.any())}
 
 
 def _state_checks(state, cfg, steps: int):
-    """The physics invariants of a run of `steps` steps on the card: every
-    state tensor still on the card, time == steps * dt exactly, the step
-    count, finite positions / velocities / reservoirs, non-negative
-    reservoirs, wind only on disc stars (0.1-3 Msun, not the interloper).
-    Returns (checks, the cluster as numpy)."""
-    import numpy as np
+    """The checks of a run of `steps` steps on the card: every state
+    tensor still on the card, time == steps * dt exactly, the step count,
+    and _host_invariants. Returns (checks, the cluster as numpy)."""
     import torch
 
     from al26_tpu_torch.state import cluster_to_numpy
@@ -447,19 +671,9 @@ def _state_checks(state, cfg, steps: int):
     want_t = (torch.tensor(steps, dtype=torch.float32)
               * torch.tensor(cfg.dt, dtype=torch.float32))
     host = cluster_to_numpy(c)
-    lm = host["mass"] >= 0.1
-    lm &= host["mass"] <= 3.0
-    lm &= ~host["is_interloper"]
-    wind_off_disc = np.any(host["slr"][:, :, 0:2] != 0.0, axis=(1, 2)) & ~lm
-    checks = {
-        "time": float(state.time) == float(want_t),
-        "step_count": int(state.step_count) == steps,
-        "finite": bool(np.isfinite(host["pos"]).all()
-                       and np.isfinite(host["vel"]).all()
-                       and np.isfinite(host["slr"]).all()),
-        "slr_nonneg": bool((host["slr"] >= 0).all()),
-        "wind_on_discs_only": not bool(wind_off_disc.any()),
-    }
+    checks = {"time": float(state.time) == float(want_t),
+              "step_count": int(state.step_count) == steps,
+              **_host_invariants(host)}
     return checks, host
 
 
@@ -649,7 +863,7 @@ def phase_tree_parity():
         if dev == "cpu" and any(launched.values()):
             _fail(f"the CPU tree run launched kernels: {launched}")
         if dev == "cuda" and not (launched["near_field"] > 0
-                                  and launched["nbody_predcols"] > 0):
+                                  and launched["nbody_predcols_mma"] > 0):
             _fail(f"the card's tree run missed a kernel: {launched}")
     g, r = out["cuda"], out["cpu"]
     pos_err = float(np.max(np.abs(g["pos"] - r["pos"])
@@ -709,7 +923,8 @@ def _main_path_kernel_checks(state, cache, cfg) -> dict:
                       random others (the plain sweep sees only their
                       pairs);
       nbody_predcols  K = k_fast rows (the largest |a|) against all N
-                      columns predicted from the force cache to dt / 2;
+                      columns predicted from the force cache to dt / 2,
+                      the FMA body and the matmul one the path runs;
       nbody_rows      the fractal virial sum's sweep (eps2 = 1e-30,
                       potential) over all N stars, on 2048 random rows.
 
@@ -766,10 +981,17 @@ def _main_path_kernel_checks(state, cache, cfg) -> dict:
                                   d(a0), d(j0), d(c.mass), d(tau), cfg.eps2)
     out["nbody_predcols"] = record(("acc", "jerk"), got, ref, PREDCOLS_TOL,
                                    k=cfg.k_fast, n=n)
+    got = cn.nbody_predcols(pf, vf, sel, c.pos, c.vel, a0, j0, c.mass, tau,
+                            cfg.eps2, use_mxu=True)
+    ref = cn.nbody_predcols_plain(d(pf), d(vf), sel, d(c.pos), d(c.vel),
+                                  d(a0), d(j0), d(c.mass), d(tau), cfg.eps2,
+                                  use_mxu=True)
+    out["nbody_predcols_mma"] = record(("acc", "jerk"), got, ref,
+                                       PRED_MMA_TOL, k=cfg.k_fast, n=n)
 
     zeros = torch.zeros_like(c.pos)
     a1, _, p1 = cn.kernel_acc_jerk_pot(c.pos, zeros, c.mass, 1e-30,
-                                       with_jerk=False)
+                                       with_jerk=False, use_mxu=False)
     rows = torch.as_tensor(np.sort(rng.choice(n, 2048, replace=False)),
                            dtype=torch.int32, device=dev)
     ar, _, pr = cn.nbody_rows_plain(d(c.pos[rows]), d(zeros[rows]), rows,
@@ -829,7 +1051,8 @@ def phase_tree_slice():
     checks, host = _state_checks(state, cfg, steps)
     checks["cache_finite"] = all(bool(torch.isfinite(x).all())
                                  for x in cache)
-    for k in ("near_field", "nbody_rows", "nbody_predcols"):
+    # kernel 1's FMA body: the fractal virial sum at init
+    for k in ("near_field", "nbody_rows", "nbody_predcols_mma"):
         checks[k + "_launched"] = launches[k] > 0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # after the counts are read: these launches compare, they do not count
@@ -845,7 +1068,7 @@ def phase_tree_slice():
           tree_kavg=cfg.tree_kavg, init_s=t_init, wall_s=wall,
           s_per_myr=wall / (steps * cfg.dt),
           wall_per_step_ms=1e3 * wall / steps,
-          substeps_per_step=step_launches["nbody_predcols"] / steps,
+          substeps_per_step=step_launches["nbody_predcols_mma"] / steps,
           launches=launches, init_launches=init_launches,
           step_launches=step_launches, peak_mem_gb=peak_gb, sweep=breakdown,
           kernels_vs_plain=kernel_checks,
@@ -866,7 +1089,7 @@ def phase_tree_slice():
     rwall = time.perf_counter() - t0
     rlaunch = _launches()
     rchecks, _ = _state_checks(rstate, rcfg, 5)
-    rchecks["seeding_sweep_nbody_rows"] = rlaunch["nbody_rows"] > 0
+    rchecks["seeding_sweep_nbody_rows_mma"] = rlaunch["nbody_rows_mma"] > 0
     rchecks["near_field_launched"] = rlaunch["near_field"] > 0
     _line("tree slice relative", n=N_NEAR, integrator=rcfg.integrator,
           alpha=rcfg.tree_alpha, tree_kavg=rcfg.tree_kavg, wall_s=rwall,
@@ -1105,6 +1328,202 @@ def phase_ensemble_slice(b: int, n: int, steps: int, chunks) -> dict:
     return launches
 
 
+def _file_state(path: str):
+    """A saved state file as the cluster's numpy dict and its time."""
+    from al26_tpu_torch.io.checkpoint import load_state
+    from al26_tpu_torch.io.compat import particles_to_cluster
+    from al26_tpu_torch.state import cluster_to_numpy
+    from al26_tpu_torch.units import myr
+
+    st = load_state(path)
+    host = cluster_to_numpy(particles_to_cluster(st.cluster, device="cpu"))
+    return host, float(st.metadata.time.value_in(myr))
+
+
+def _parity(g, r) -> dict:
+    """Two final states against each other at the bars of phase 4."""
+    import numpy as np
+
+    return {"pos_err_over_bar": float(np.max(
+                np.abs(g["pos"] - r["pos"]) / (2e-5 + 2e-4 * np.abs(r["pos"])))),
+            "slr_err_over_bar": float(np.max(
+                np.abs(g["slr"] - r["slr"]) / (1e-30 + 2e-3 * np.abs(r["slr"])))),
+            "mass_exact": bool(np.array_equal(g["mass"], r["mass"])),
+            "fields_not_bit_equal": sorted(
+                k for k in g if not np.array_equal(g[k], r[k]))}
+
+
+def phase_cli():
+    """The CLI as a user runs it, in a subprocess in a temporary
+    directory: n = 1000, t_f = 1 Myr (1000 steps, the reference cadence of
+    saves), f32; the files, their counts, the wall time and s/Myr with
+    the saves, the invariants of the last state; then a resume from
+    checkpoint 50 to the end, whose final state is held against the
+    uninterrupted run's at the bars of phase 4."""
+    import glob
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="al26-cli-")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, env.get("PYTHONPATH")) if p)
+    cli = [sys.executable, "-m", "al26_tpu_torch.cli"]
+    args = ["-n", "1000", "-rc", "1", "-t_f", "1", "--dtype", "f32",
+            "--seed", "42", "-f", "smoke", "-v"]
+
+    def call(extra):
+        t0 = time.perf_counter()
+        r = subprocess.run(cli + extra, cwd=tmp, env=env,
+                           capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            _fail(f"the CLI exited {r.returncode}: {r.stderr[-2000:]}")
+        return r.stdout, wall
+
+    def timings(out):
+        """run()'s wall time and phase totals from the -v output."""
+        got = {}
+        for ln in out.splitlines():
+            parts = ln.split()
+            if ln.startswith("wall time:"):
+                got["run_s"] = float(parts[2])
+            elif len(parts) > 2 and parts[1] == "total":
+                got[parts[0] + "_s"] = float(parts[2])
+        return got
+
+    out, wall = call(args)
+    run_t = timings(out)
+    states = sorted(glob.glob(os.path.join(tmp, "smoke-state-*.pkl.zst")))
+    with open(os.path.join(tmp, "smoke-cluster-yields.csv")) as fh:
+        csv_rows = len(fh.readlines()) - 1
+    final, t_final = _file_state(states[-1])
+    checks = {"time": abs(t_final - 1.0) <= 1e-6, **_host_invariants(final)}
+    checks.update({
+        "state_files": len(states) == 102,
+        "csv_rows": csv_rows == 102,
+        "yields_blob": os.path.exists(os.path.join(tmp,
+                                                   "smoke-yields.ubj.zst")),
+        "yields_frames": os.path.exists(os.path.join(tmp,
+                                                     "smoke-yields.ubjf")),
+        "writer_line": "# checkpoint writer:" in out,
+    })
+    out_r, wall_r = call(["-r", "smoke", "-nc", "50", "-v"])
+    resumed, t_res = _file_state(states[-1])
+    par = _parity(resumed, final)
+    checks["resumed_time"] = abs(t_res - 1.0) <= 1e-6
+    checks["resume_parity"] = (par["pos_err_over_bar"] <= 1.0
+                               and par["slr_err_over_bar"] <= 1.0
+                               and par["mass_exact"])
+    writer = [ln for ln in out.splitlines() if "checkpoint writer" in ln]
+    _line("cli", n=1000, steps=1000, t_f=1.0, dir=tmp,
+          writer=writer[0] if writer else None,
+          state_files=len(states), csv_rows=csv_rows,
+          state_file_bytes=os.path.getsize(states[-1]),
+          command_s=wall, **run_t,
+          s_per_myr_with_saves=run_t.get("run_s", wall) / 1.0,
+          resume_command_s=wall_r, resume=timings(out_r), **par,
+          checks=checks)
+    if not all(checks.values()):
+        _fail(f"cli: {[k for k, v in checks.items() if not v]} failed")
+
+
+def phase_driver(slice_s_per_myr: float):
+    """sim.driver.run in process at N = 32768 (20 steps at the default dt,
+    a save after steps 1 and 11 and at the end, plus #0): the launches of
+    the matmul kernels (counts set to 0 just before the run, read just
+    after), s/Myr with the saves beside phase 5's without them
+    (`slice_s_per_myr`), the seconds in the saves, the files and the
+    invariants. Returns the launches."""
+    import glob
+    import tempfile
+
+    import torch
+
+    from al26_tpu_torch import SimConfig
+    from al26_tpu_torch.sim import driver
+
+    tmp = tempfile.mkdtemp(prefix="al26-driver-")
+    base = os.path.join(tmp, "drv")
+    cfg = SimConfig(n=N_KERNEL, rc=1.0, dtype="f32", final_time=0.2,
+                    n_plot=2, steps_per_plot=10, seed=42, filename=base)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = driver.run(cfg, progress=False, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    steps = 20
+    checks, _ = _state_checks(res.state, res.cfg, steps)
+    states = sorted(glob.glob(base + "-state-*.pkl.zst"))
+    checks.update({
+        "state_files": len(states) == 4,
+        "rows_mma_launched": launches["nbody_rows_mma"] > 0,
+        "predcols_mma_launched": launches["nbody_predcols_mma"] > 0,
+        "fma_bodies_idle": not (launches["nbody_rows"]
+                                or launches["nbody_predcols"]),
+    })
+    ph = res.phase_seconds
+    _line("driver", n=N_KERNEL, integrator=res.cfg.integrator, steps=steps,
+          wall_s=wall, run_s=res.wall_time_s,
+          s_per_myr_with_saves=wall / (steps * res.cfg.dt),
+          phase5_s_per_myr=slice_s_per_myr,
+          physics_s=ph.get("physics"), checkpoint_s=ph.get("checkpoint"),
+          writer_thread_s=ph.get("writer"),
+          saves_share=ph.get("checkpoint", 0.0) / wall,
+          state_file_bytes=os.path.getsize(states[-1]), launches=launches,
+          checks=checks)
+    if not all(checks.values()):
+        _fail(f"driver: {[k for k, v in checks.items() if not v]} failed")
+    return launches
+
+
+def phase_ensemble_driver():
+    """sim.driver.run_ensemble: 64 realizations of N = 1000, 20 steps,
+    f32, into the pt-grid layout of a temporary root; the 64 folders and
+    their files, s/Myr with the saves, the launches, the invariants."""
+    import glob
+    import tempfile
+
+    import torch
+
+    from al26_tpu_torch import SimConfig
+    from al26_tpu_torch.parallel.ensemble import _take
+    from al26_tpu_torch.sim import driver
+
+    tmp = tempfile.mkdtemp(prefix="al26-ens-")
+    b, steps = 64, 20
+    cfg = SimConfig(n=1000, rc=1.0, dtype="f32", final_time=0.2, n_plot=2,
+                    steps_per_plot=10, seed=42, ensemble=b)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bs, dirs, _ = driver.run_ensemble(cfg, progress=False, root=tmp,
+                                      device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    rcfg = cfg.replace(integrator="leapfrog")
+    checks = {}
+    for k in range(b):
+        ck, _ = _state_checks(_take(bs, k), rcfg, steps)
+        for name, ok in ck.items():
+            checks[name] = checks.get(name, True) and ok
+    counts = [len(glob.glob(os.path.join(d, "pt-*-state-*.pkl.zst")))
+              for d in dirs]
+    checks["pt_dirs"] = len(dirs) == b and all(
+        os.path.basename(d) == f"pt-{k}" for k, d in enumerate(dirs))
+    checks["state_files"] = counts == [4] * b
+    checks["rows_group_launched"] = launches["nbody_rows_group"] > 0
+    _line("ensemble driver", realizations=b, n=1000, steps=steps,
+          wall_s=wall, s_per_myr_with_saves=wall / (steps * cfg.dt),
+          layout=os.path.relpath(dirs[0], tmp), launches=launches,
+          checks=checks)
+    if not all(checks.values()):
+        _fail(f"ensemble driver: {[k for k, v in checks.items() if not v]}"
+              " failed")
+
+
 def main() -> int:
     try:
         import torch
@@ -1130,6 +1549,7 @@ def main() -> int:
     phase_device()
     phase_build()
     records = phase_kernels()
+    mma = phase_kernel_mma()
     records.append(phase_near_field())
     group = phase_group_kernel()
     phase_parity()
@@ -1137,9 +1557,12 @@ def main() -> int:
     phase_tree_accuracy()
     phase_tree_parity()
     phase_slice(8192, "hermite4")
-    phase_slice(32768, "hermite4_block")
+    slice_s_per_myr = phase_slice(N_KERNEL, "hermite4_block")
     tree, checked = phase_tree_slice()
     ensembles = [phase_ensemble_slice(*e) for e in ENSEMBLES]
+    phase_cli()
+    drv = phase_driver(slice_s_per_myr)
+    phase_ensemble_driver()
     # launches: kernels 1-3 from the N_TREE tree-tier run, which exercises
     # all three, the error the worst of the kernel phases and that run's
     # shapes; the group window from the 64 x 1000 ensemble
@@ -1149,6 +1572,14 @@ def main() -> int:
                                  checked[rec["name"]]["max_abs_err"])
     group["launches"] = ensembles[0]["nbody_rows_group"]
     records.append(group)
+    # the matmul bodies: launches from the driver at N_KERNEL (phase 6b),
+    # the error the worst of phase 3d's and of the tree run's shapes
+    for rec in mma:
+        rec["launches"] = drv[rec["name"]]
+        if rec["name"] in checked:
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     checked[rec["name"]]["max_abs_err"])
+    records.extend(mma)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

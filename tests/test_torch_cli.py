@@ -1,0 +1,126 @@
+"""The port's command line (al26_tpu_torch.cli) against the JAX package's
+(al26_tpu.cli): every flag with the same dest, default and choices, the
+same SimConfig from the same argv, the refusals of what is not ported,
+and a run end to end on the CPU (cold, resumed, extended).
+"""
+import glob
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from al26_tpu_torch import cli
+from al26_tpu_torch.io.checkpoint import load_state
+from al26_tpu_torch.io.compat import particles_to_cluster
+from al26_tpu_torch.state import cluster_to_numpy
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+torch.set_num_threads(1)
+
+
+def _actions(parser):
+    return {tuple(a.option_strings): a for a in parser._actions
+            if a.option_strings and a.dest != "help"}
+
+
+def test_every_jax_flag_exists_with_the_same_meaning():
+    from al26_tpu import cli as jcli
+
+    jax, port = _actions(jcli.build_parser()), _actions(cli.build_parser())
+    assert set(port) - set(jax) == {("--device",)}
+    for opts, ja in jax.items():
+        pa = port[opts]
+        assert pa.dest == ja.dest, opts
+        assert pa.default == ja.default, opts
+        assert (tuple(pa.choices) if pa.choices else None) == (
+            tuple(ja.choices) if ja.choices else None), opts
+        assert type(pa) is type(ja), opts
+        assert getattr(pa.type, "__name__", pa.type) == getattr(
+            ja.type, "__name__", ja.type), opts
+    dev = port[("--device",)]
+    assert dev.default == "cuda" and dev.dest == "device"
+
+
+@pytest.mark.parametrize("argv", [
+    ["-n", "100", "-rc", "0.5"],
+    ["-n", "64", "-rc", "1", "-t_f", "3", "--dtype", "f32", "--seed", "7",
+     "-i", "-mi", "4.0", "-trji", "--integrator", "hermite4_block",
+     "--force_impl", "tree", "--tree_mac", "relative", "--k_ultra", "16"],
+    ["-r", "runs/sim", "-nc", "4", "-t_f", "20", "-v"],
+    ["-n", "10", "-rc", "1", "--ensemble", "8", "--no_force_cache",
+     "--yields_rewrite", "--sync_saves", "--sn_parity_mode",
+     "--metallicity", "0.01", "--yields_vel", "0", "--device", "cpu"],
+])
+def test_same_config_as_jax(argv):
+    """The same argv gives the same SimConfig in both packages (--device
+    is the port's own and stays out of the config)."""
+    from al26_tpu import cli as jcli
+
+    jargv = [a for a in argv if a not in ("--device", "cpu")]
+    got = cli.config_from_args(cli.build_parser().parse_args(argv))
+    want = jcli.config_from_args(jcli.build_parser().parse_args(jargv))
+    assert got.to_dict() == want.to_dict()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mesh_shape", "2,2"], ["--force_impl", "sharded"],
+    ["--force_impl", "ring"], ["--orbax_dir", "ob"],
+    ["--gravity_stride", "2"],
+])
+def test_not_ported_flags_refused_before_any_run(flags, tmp_path,
+                                                 monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["-n", "8", "-rc", "1", "-f", "x", "--device", "cpu"]
+                 + flags)
+    assert os.listdir(tmp_path) == []
+
+
+def test_cli_runs_resumes_and_extends_on_cpu(tmp_path, monkeypatch,
+                                             capsys):
+    """-n 16, 1000 steps of 5e-6 Myr, 102 saves: the files; `-r -nc 50`
+    reproduces the last state bit for bit; `-r -t_f` extends on the same
+    step grid. Without --device, a machine with no card raises."""
+    monkeypatch.chdir(tmp_path)
+    base = ["-n", "16", "-rc", "0.5", "--seed", "3", "--dtype", "f64",
+            "--device", "cpu"]
+    assert cli.main(base + ["-t_f", "0.005", "-f", "e2e"]) == 0
+    out = capsys.readouterr().out
+    assert "# checkpoint writer:" in out and "!!! Finished !!!" in out
+    states = sorted(glob.glob("e2e-state-*.pkl.zst"))
+    assert len(states) == 102
+    assert os.path.exists("e2e-yields.ubj.zst")
+    assert os.path.exists("e2e-yields.ubjf")
+    assert len(open("e2e-cluster-yields.csv").readlines()) == 103
+
+    def last():
+        st = load_state(sorted(glob.glob("e2e-state-*.pkl.zst"))[-1])
+        return st, cluster_to_numpy(particles_to_cluster(st.cluster,
+                                                         device="cpu"))
+
+    _, want = last()
+    assert cli.main(["-r", "e2e", "-nc", "50", "--device", "cpu"]) == 0
+    _, got = last()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert cli.main(["-r", "e2e", "-t_f", "0.006", "--device", "cpu"]) == 0
+    st, _ = last()
+    assert st.metadata.args.final_time == pytest.approx(0.006)
+    assert len(glob.glob("e2e-state-*.pkl.zst")) == 123
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["-n", "8", "-rc", "1", "-f", "nocard"])
+
+
+def test_console_script_and_no_jax_import():
+    """The console entry point is declared, and neither the port nor the
+    smoke script imports the JAX package."""
+    text = open(os.path.join(REPO, "pyproject.toml")).read()
+    assert 'al26-nbody-torch = "al26_tpu_torch.cli:main"' in text
+    rx = re.compile(r"^\s*(import|from)\s+(al26_tpu|jax)(\.|\s|$)")
+    files = glob.glob(os.path.join(REPO, "al26_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    bad = [(f, ln) for f in files for ln in open(f) if rx.match(ln)]
+    assert bad == []

@@ -65,7 +65,8 @@ def test_full_sweep_matches_pallas(jx, n, use_mxu):
     pos, vel, mass = _system(n, offset=4.0)
     a1, j1, p1 = jx.pk.pallas_acc_jerk_pot(jx.J(pos), jx.J(vel), jx.J(mass),
                                            1e-3, use_mxu=use_mxu)
-    a2, j2, p2 = cn.kernel_acc_jerk_pot(T(pos), T(vel), T(mass), 1e-3)
+    a2, j2, p2 = cn.kernel_acc_jerk_pot(T(pos), T(vel), T(mass), 1e-3,
+                                        use_mxu=use_mxu)
     tol = 3e-4 if use_mxu else 1e-5
     assert _rel(a2, a1) < tol
     assert _rel(j2, j1) < tol
@@ -83,13 +84,14 @@ def test_sweep_without_jerk_matches_pallas(jx, use_mxu):
                                           1e-3, with_jerk=False,
                                           use_mxu=use_mxu)
     a2, j2, _ = cn.kernel_acc_jerk_pot(T(pos), T(vel), T(mass), 1e-3,
-                                       with_jerk=False)
+                                       with_jerk=False, use_mxu=use_mxu)
     assert _rel(a2, a1) < (3e-4 if use_mxu else 1e-5)
     assert not j2.any()
     if not use_mxu:
         assert not np.asarray(j1).any()
-    acc_fn = cn.make_pallas_acc(T(mass), 1e-3)
-    np.testing.assert_array_equal(acc_fn(T(pos)).numpy(), a2.numpy())
+    if use_mxu:                      # the factory takes the default
+        acc_fn = cn.make_pallas_acc(T(mass), 1e-3)
+        np.testing.assert_array_equal(acc_fn(T(pos)).numpy(), a2.numpy())
 
 
 @pytest.mark.parametrize("use_mxu", [False, True])
@@ -102,7 +104,7 @@ def test_pot_eps2_fused_sweep_matches_pallas(jx, use_mxu):
                                            eps2, pot_eps2=1e-30,
                                            use_mxu=use_mxu)
     a2, j2, p2 = cn.kernel_acc_jerk_pot(T(pos), T(vel), T(mass), eps2,
-                                        pot_eps2=1e-30)
+                                        pot_eps2=1e-30, use_mxu=use_mxu)
     tol = 3e-4 if use_mxu else 1e-5
     assert _rel(a2, a1) < tol
     assert _rel(j2, j1) < tol
@@ -121,7 +123,8 @@ def test_scattered_rows_with_padding_match_pallas(jx):
         jx.J(rows), jx.J(vrows), jx.J(ids), jx.J(pos), jx.J(vel),
         jx.J(mass), eps2=1e-3, use_mxu=False)
     a2, j2, p2 = cn.kernel_acc_jerk_pot_rows(
-        T(rows), T(vrows), T(ids), T(pos), T(vel), T(mass), 1e-3)
+        T(rows), T(vrows), T(ids), T(pos), T(vel), T(mass), 1e-3,
+        use_mxu=False)
     assert _rel(a2, a1) < 1e-5
     assert _rel(j2, j1) < 1e-5
     assert _rel(p2, p1) < 1e-5
@@ -144,6 +147,11 @@ def test_small_row_call_matches_pallas(jx, use_mxu):
     a1, j1 = ff_j(jx.J(pos[ids]), jx.J(vel[ids]), jx.J(ids), jx.J(pos),
                   jx.J(vel))
     ff_t = cn.make_pallas_force_rows(T(mass), 1e-3)
+    if not use_mxu:
+        def ff_t(pr, vr, i, pa, va):
+            a, j, _ = cn.kernel_acc_jerk_pot_rows(pr, vr, i, pa, va, T(mass),
+                                                  1e-3, use_mxu=False)
+            return a, j
     a2, j2 = ff_t(T(pos[ids]), T(vel[ids]), T(ids), T(pos), T(vel))
     tol = 3e-4 if use_mxu else 1e-5
     assert _rel(a2, a1) < tol
@@ -178,7 +186,7 @@ def test_predcols_plus_override_matches_pallas(jx):
                            jx.J(pf_pred), jx.J(vf_pred), jx.J(mass[fast]),
                            eps2, G_INTERNAL)
     rows_t = cn.make_pred_force_rows(T(pos), T(vel), T(a0), T(j0), T(mass),
-                                     eps2)
+                                     eps2, use_mxu=False)
     a2, j2 = rows_t(T(pfp), T(vfp), T(fast), T(tau))
     da2, dj2 = _fast_override_delta(T(pfp), T(vfp), T(pfp), T(vfp),
                                     T(pf_pred), T(vf_pred), T(mass[fast]),
@@ -188,9 +196,73 @@ def test_predcols_plus_override_matches_pallas(jx):
     assert _rel(da2, da1) < 2e-5
 
 
+@pytest.mark.parametrize("mode", [
+    dict(eps2=1e-3), dict(eps2=0.125), dict(eps2=0.125, pot_eps2=1e-30),
+    dict(eps2=1e-3, with_jerk=False), dict(eps2=0.125, with_pot=False)])
+def test_matmul_plain_is_the_fma_sum_in_f64(mode):
+    """The matmul reduction's plain version (centring, Sw / Sws against
+    C8, the row recovery, the potential through the product at eps2 >=
+    1e-2) is the FMA sum's algebra: in f64 the two agree to ~1e-10 of the
+    max, off-centre, on scattered rows with a padding row, and for kernel
+    2's predicted columns."""
+    rng = np.random.default_rng(8)
+    pos = T(rng.normal(size=(300, 3)) + 4.0)
+    vel = T(rng.normal(size=(300, 3)))
+    mass = T(rng.uniform(0.1, 2.0, 300))
+    ids = T(np.asarray([5, 250, -1, 17, 99], np.int32))
+    rows = T(np.where(ids.numpy()[:, None] >= 0,
+                      pos.numpy()[np.maximum(ids.numpy(), 0)], 3.5))
+    vrows = vel[ids.long().clamp(min=0)]
+    got = cn.nbody_rows_plain(rows, vrows, ids, pos, vel, mass,
+                              use_mxu=True, **mode)
+    want = cn.nbody_rows_plain(rows, vrows, ids, pos, vel, mass, **mode)
+    for g, w in zip(got, want):
+        if w.abs().max() > 0:
+            assert _rel(g, w) < 1e-10
+        else:
+            assert not g.any()
+    a0, j0 = 0.1 * vel.flip(0), 0.05 * pos.flip(0)
+    tau = T(0.004, dtype=torch.float64)
+    got = cn.nbody_predcols_plain(rows, vrows, ids, pos, vel, a0, j0, mass,
+                                  tau, mode["eps2"], use_mxu=True)
+    want = cn.nbody_predcols_plain(rows, vrows, ids, pos, vel, a0, j0, mass,
+                                   tau, mode["eps2"])
+    for g, w in zip(got, want):
+        assert _rel(g, w) < 1e-10
+
+
+def test_predcols_matmul_matches_pallas(jx):
+    """Kernel 2's matmul body + the K x K delta against the JAX package's
+    (use_mxu=True, its default) at test_pallas.py's bar, 5e-4 of the
+    max; the port centres once per step (make_pred_force_rows)."""
+    n, k = 700, 64
+    pos, vel, mass = _system(n, seed=3, offset=3.0)
+    rng = np.random.default_rng(4)
+    a0 = (rng.normal(size=(n, 3)) * 0.1).astype(np.float32)
+    j0 = (rng.normal(size=(n, 3)) * 0.05).astype(np.float32)
+    fast = rng.choice(n, size=k, replace=False).astype(np.int32)
+    tau = np.float32(0.0037)
+    pfp = (pos[fast] + rng.normal(size=(k, 3)) * 1e-3).astype(np.float32)
+    vfp = (vel[fast] + rng.normal(size=(k, 3)) * 1e-3).astype(np.float32)
+    rows_j = jx.pk.make_pred_force_rows(
+        jx.J(pos), jx.J(vel), jx.J(a0), jx.J(j0), jx.J(mass), eps2=1e-3,
+        tile_i=64)
+    a1, j1 = rows_j(jx.J(pfp), jx.J(vfp), jx.J(fast), jx.J(tau))
+    rows_t = cn.make_pred_force_rows(T(pos), T(vel), T(a0), T(j0), T(mass),
+                                     1e-3)
+    a2, j2 = rows_t(T(pfp), T(vfp), T(fast), T(tau))
+    assert _rel(a2, a1) < 5e-4
+    assert _rel(j2, j1) < 5e-4
+    before = dict(cn.LAUNCHES)
+    rows_t(T(pfp), T(vfp), T(fast), T(tau))
+    assert cn.LAUNCHES == before            # CPU tensors: plain versions
+
+
 def test_wrappers_check_arguments():
     """dtype, shape and contiguity are checked before any launch; the
-    mode not ported (use_mxu) raises NotImplementedError; the group
+    matmul mode has no group windows: the kernel wrapper refuses the
+    pair, the entry point forces the mode off under group_size > 0 (as
+    pallas_nbody.py:382 does) and a bad centre is refused; the group
     windows run their plain version on the CPU."""
     pos, vel, mass = (T(a) for a in _system(64, seed=1))
     ids = torch.arange(64, dtype=torch.int32)
@@ -201,11 +273,20 @@ def test_wrappers_check_arguments():
     with pytest.raises(ValueError):
         cn.nbody_rows(pos.t().contiguous().t(), vel, ids, pos, vel, mass,
                       1e-3)
-    with pytest.raises(NotImplementedError):
-        cn.kernel_acc_jerk_pot(pos, vel, mass, 1e-3, use_mxu=True)
-    with pytest.raises(NotImplementedError):
-        cn.kernel_acc_jerk_pot(pos, vel, mass, 1e-3, group_size=32,
-                               use_mxu=True)
+    with pytest.raises(ValueError, match="group"):
+        cn.nbody_rows(pos, vel, ids, pos, vel, mass, 1e-3, group_size=32,
+                      use_mxu=True)
+    forced = cn.kernel_acc_jerk_pot(pos, vel, mass, 1e-3, group_size=32,
+                                    use_mxu=True)
+    fma = cn.kernel_acc_jerk_pot(pos, vel, mass, 1e-3, group_size=32,
+                                 use_mxu=False)
+    for x, y in zip(forced, fma):
+        assert torch.equal(x, y)
+    tau = torch.tensor(0.01)
+    with pytest.raises(ValueError):
+        cn.nbody_predcols(pos[:8], vel[:8], ids[:8], pos, vel, pos, vel,
+                          mass, tau, 1e-3, use_mxu=True,
+                          centre=torch.zeros(3))
     before = dict(cn.LAUNCHES)
     cn.kernel_acc_jerk_pot(pos, vel, mass, 1e-3)
     cn.kernel_acc_jerk_pot(pos, vel, mass, 1e-3, group_size=32)
@@ -253,6 +334,59 @@ def test_kernels_match_plain_on_card():
                                       mass.double(), tau.double(), 1e-3)
         for g_, r_ in zip(got, ref):
             assert _rel(g_.cpu(), r_.cpu()) < 2e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_mma_kernels_match_plain_on_card():
+    """The matmul reductions (nbody_rows_mma, nbody_predcols_mma) against
+    their f64 plain decomposition on a card, at the JAX package's bars
+    (3e-4 of the max, 5e-4 for kernel 2, 1e-4 for a potential through the
+    product, 1e-5 for an explicit one), ragged and tiny shapes, off-centre;
+    a repeat gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    for n, b in ((777, 777), (4099, 256), (5, 3)):
+        pos, vel, mass = (T(a, device=dev) for a in _system(n, seed=n,
+                                                             offset=4.0))
+        ids = torch.as_tensor(
+            np.random.default_rng(n).choice(n, b, replace=False),
+            dtype=torch.int32, device=dev)
+        rp, rv = pos[ids].contiguous(), vel[ids].contiguous()
+        before = cn.LAUNCHES["nbody_rows_mma"]
+        for eps2, kw, pot_bar in ((1e-3, {}, 1e-5),
+                                  (0.125, {}, 1e-4),
+                                  (0.125, {"pot_eps2": 1e-30}, 1e-5),
+                                  (1e-3, {"with_jerk": False}, 1e-5),
+                                  (1e-3, {"with_pot": False}, None)):
+            got = cn.nbody_rows(rp, rv, ids, pos, vel, mass, eps2,
+                                use_mxu=True, **kw)
+            again = cn.nbody_rows(rp, rv, ids, pos, vel, mass, eps2,
+                                  use_mxu=True, **kw)
+            assert all(torch.equal(x, y) for x, y in zip(got, again))
+            ref = cn.nbody_rows_plain(rp.double(), rv.double(), ids,
+                                      pos.double(), vel.double(),
+                                      mass.double(), eps2, use_mxu=True,
+                                      **kw)
+            for g_, r_, bar in zip(got, ref, (3e-4, 3e-4, pot_bar)):
+                if r_.abs().max() > 0:
+                    assert _rel(g_.cpu(), r_.cpu()) < bar
+                else:
+                    assert not g_.any()
+        assert cn.LAUNCHES["nbody_rows_mma"] == before + 10
+        a0 = 0.1 * torch.randn_like(pos)
+        j0 = 0.05 * torch.randn_like(pos)
+        tau = torch.tensor(0.0037, device=dev)
+        got = cn.nbody_predcols(rp, rv, ids, pos, vel, a0, j0, mass, tau,
+                                1e-3, use_mxu=True)
+        ref = cn.nbody_predcols_plain(rp.double(), rv.double(), ids,
+                                      pos.double(), vel.double(),
+                                      a0.double(), j0.double(),
+                                      mass.double(), tau.double(), 1e-3,
+                                      use_mxu=True)
+        for g_, r_ in zip(got, ref):
+            assert _rel(g_.cpu(), r_.cpu()) < 5e-4
     torch.cuda.synchronize()
 
 

@@ -120,5 +120,27 @@ def test_not_ported_backends_raise():
         port_step.run_steps(ts, ta, tcfg.replace(
             integrator="hermite4_block", k_fast=8, gravity_stride=2), 2,
             force_impl="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_step.run_steps_traj(ts, ta, tcfg, 2)
+    # the trajectory runner is ported: one row a step
+    _, rows = port_step.run_steps_traj(ts, ta, tcfg, 2)
+    assert rows.shape == (2, 6)
+
+
+def test_trajectory_runners_match_jax():
+    """run_steps_traj and run_steps_traj_cached (the -trji runners) from
+    the same bits: the states to the bar of (a), the rows (t_sim, t_agb,
+    x, y, z, barycentre distance) likewise; the cached runner's rows are
+    the uncached runner's on the default path."""
+    kw = dict(n=24, rc=0.5, final_time=10.0, seed=4, dtype="f64",
+              interloper=True, interloper_trajectory=True,
+              interloper_offset_time=-0.5)
+    (js, ja, jcfg), (ts, ta, tcfg) = _both(**kw)
+    js2, jrows = jax_step.run_steps_traj(js, ja, jcfg, 3)
+    ts2, trows = port_step.run_steps_traj(ts, ta, tcfg, 3)
+    _close(trows.numpy(), jrows, 1e-12, 1e-12)
+    _close(cluster_to_numpy(ts2.cluster)["pos"],
+           jax_to_numpy(js2.cluster)["pos"], 1e-12, 1e-12)
+    assert float(trows[0, 1]) == pytest.approx(0.5)   # t - offset
+    ts3, cache, crows = port_step.run_steps_traj_cached(ts, None, ta, tcfg,
+                                                        3)
+    np.testing.assert_array_equal(crows.numpy(), trows.numpy())
+    assert cache is None
