@@ -36,7 +36,14 @@ C8 = (x, y, z, vx, vy, vz, 1, |x|^2), after mean-centring. Their plain
 versions perform the same decomposition in torch, in the input dtype
 (`nbody_rows_plain(..., use_mxu=True)`, `nbody_predcols_plain(...,
 use_mxu=True)`). As in the JAX package the mode is forced off under
-group windows (`group_size > 0`, the entry points below).
+group windows (`group_size > 0`, the entry points below). Each matmul
+call is ONE launch: the column splits of `mma_plan` (whole tiles, filling
+whole waves of the card's resident blocks) are summed in a fixed order
+inside the kernel by the blocks that finish last, through a zeroed ticket
+buffer per device that every launch leaves zeroed. `rows_mma_launcher`
+and `PredcolsMma` prepare a launch's outputs, scratch and ctypes
+arguments; `make_pred_force_rows` makes its PredcolsMma once per step, so
+a substep's `rows_at` checks its rows and makes one ctypes call.
 
 The JAX package's entry points and factories keep their names, layouts
 (pos [N,3]) and defaults: `kernel_acc_jerk_pot(_rows)` for
@@ -46,6 +53,7 @@ The JAX package's entry points and factories keep their names, layouts
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -59,13 +67,23 @@ LAUNCHES = {"nbody_rows": 0, "nbody_rows_group": 0, "nbody_predcols": 0,
 # must match TB / TJ in csrc/nbody.cu: rows per block, columns per tile
 _TB = 128
 _TJ = 256
-# column splits are chosen so a launch has at least this many blocks
-# (4 per SM of an H100)
+# the FMA bodies' column splits are chosen so a launch has at least this
+# many blocks (4 per SM of an H100); the matmul bodies' by mma_plan
 _TARGET_BLOCKS = 4 * 132
 # plain versions: rows per chunk so a [rows, N] temporary stays <= 2^22
 _PLAIN_CHUNK_ELEMS = 1 << 22
 # sums per row of the matmul sweep's partials (Sw[8], Sws[8], explicit pot)
 _NS_MMA = 17
+# the matmul bodies' column splits: at least this many whole tiles a block
+# where N allows (2 measured fastest for kernel 2 at K = 256, N = 32768 on
+# an H100: 1 and 4 were slower, PERF.md), and a split count whose makespan
+# (waves x tiles a block) is within this factor of the best, the fewest
+# such splits
+_MMA_MIN_TILES = 2
+_MMA_SLACK = 1.05
+# must match RED_GROUP in csrc/nbody.cu: splits summed by one block before
+# the final sum over the groups
+_RED_GROUP = 16
 # potential modes of the matmul sweep (csrc/nbody.cu POT_*)
 POT_NONE, POT_EXPLICIT, POT_SEPARATE, POT_PRODUCT = 0, 1, 2, 3
 
@@ -113,7 +131,7 @@ def load():
         p, p, p, i,           # pos, vel, mass, n
         p, f, f, f,           # centre, eps2, pot_eps2, g
         i, i,                 # with_jerk, pot_mode
-        p, i,                 # partial, splits
+        p, p, i, i,           # partial, counters, splits, cols_per_split
         p, p, p, p,           # acc, jerk, pot, stream
     ]
     lib.nbody_rows_mma_launch.restype = i
@@ -121,10 +139,12 @@ def load():
         p, p, p, i,           # rows_pos, rows_vel, row_ids, b
         p, p, p, p, p, i,     # pos0, vel0, acc0, jerk0, mass, n
         p, p, f, f,           # centre, tau, eps2, g
-        p, i,                 # partial, splits
+        p, p, i, i,           # partial, counters, splits, cols_per_split
         p, p, p,              # acc, jerk, stream
     ]
     lib.nbody_predcols_mma_launch.restype = i
+    lib.nbody_mma_blocks_per_sm.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.nbody_mma_blocks_per_sm.restype = i
     _lib = lib
     return lib
 
@@ -140,6 +160,83 @@ def _splits(b: int, n: int, group_size: int = 0) -> int:
     row_blocks = -(-b // _TB)
     tiles = -(-n // _TJ)
     return max(1, min(-(-_TARGET_BLOCKS // row_blocks), tiles))
+
+
+@functools.lru_cache(maxsize=None)
+def mma_plan(b: int, n: int, slots: int) -> Tuple[int, int]:
+    """(splits, tiles per split) of a matmul-body launch of b rows against
+    n columns on a card that holds `slots` blocks at once (SMs x resident
+    blocks per SM). Each split is a run of whole TJ-column tiles from
+    [0, n), so only the last split can end in a ragged tile. A block walks
+    at least _MMA_MIN_TILES tiles where n allows (the sums it writes and
+    the ordered reduction are paid once per block), and never more splits
+    than tiles. Among those, the split counts whose makespan, waves of
+    `slots` blocks x tiles a block, is within _MMA_SLACK of the least; of
+    them the fewest splits (the least scratch and reduction)."""
+    row_blocks = -(-b // _TB)
+    tiles = max(1, -(-n // _TJ))
+    plans = []
+    for s in range(1, max(1, tiles // min(_MMA_MIN_TILES, tiles)) + 1):
+        per = -(-tiles // s)
+        splits = -(-tiles // per)
+        plans.append((-(-row_blocks * splits // slots) * per, splits, per))
+    best = min(p[0] for p in plans)
+    return min((splits, per) for span, splits, per in plans
+               if span <= _MMA_SLACK * best)
+
+
+_SLOTS = {}
+
+
+def _mma_slots(device: torch.device, with_jerk: bool, pot: int,
+               pred: bool) -> int:
+    """Resident blocks of one matmul variant on the card: SMs x blocks per
+    SM (the library's occupancy query), once per variant and device."""
+    key = (device.index, bool(with_jerk), pot, bool(pred))
+    if key not in _SLOTS:
+        blocks = ctypes.c_int(0)
+        err = load().nbody_mma_blocks_per_sm(int(with_jerk), pot, int(pred),
+                                             ctypes.byref(blocks))
+        if err != 0 or blocks.value < 1:
+            raise RuntimeError(f"the matmul body's occupancy query failed: "
+                               f"cudaError {err}, {blocks.value} blocks")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _SLOTS[key] = sms * blocks.value
+    return _SLOTS[key]
+
+
+_COUNTERS = {}
+
+
+def _counters(device: torch.device, count: int) -> torch.Tensor:
+    """The matmul bodies' split tickets (int32), zero between launches:
+    the block that takes a counter's last ticket resets it, so one zeroed
+    buffer per device serves every launch in stream order (grown, zeroed,
+    when a launch needs more)."""
+    got = _COUNTERS.get(device.index)
+    if got is None or got.numel() < count:
+        got = _COUNTERS[device.index] = torch.zeros(
+            max(count, 4096), dtype=torch.int32, device=device)
+    return got
+
+
+def _mma_scratch(device, b: int, n: int, with_jerk: bool, pot: int,
+                 pred: bool):
+    """(partial or None, counters or None, splits, cols per split) of a
+    matmul launch of b rows against n columns (b, n > 0)."""
+    splits, per = mma_plan(b, n, _mma_slots(device, with_jerk, pot, pred))
+    if splits == 1:
+        return None, None, 1, per * _TJ
+    partial = torch.empty((splits, b, _NS_MMA), dtype=torch.float32,
+                          device=device)
+    # per row block: a ticket per group of _RED_GROUP splits, and one for
+    # the groups
+    tickets = -(-b // _TB) * (-(-splits // _RED_GROUP) + 1)
+    return partial, _counters(device, tickets), splits, per * _TJ
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -446,38 +543,26 @@ def nbody_rows(pos_rows, vel_rows, row_ids, pos, vel, mass, eps2: float,
         return acc, jerk, pot
     if n == 0:
         return acc.zero_(), jerk.zero_(), pot.zero_()
+    if use_mxu:
+        launch, out = rows_mma_launcher(pos_rows, vel_rows, row_ids, pos,
+                                        vel, mass, eps2, g, with_jerk,
+                                        with_pot, pot_eps2)
+        _count(launch(), "nbody_rows_mma")
+        return out
     lib = load()
     splits = _splits(b, n, group_size)
+    partial = torch.empty((splits, b, 7), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        if use_mxu:
-            centre = column_centre(pos, vel)
-            partial = torch.empty((splits, b, _NS_MMA), dtype=torch.float32,
-                                  device=device)
-            err = lib.nbody_rows_mma_launch(
-                pos_rows.data_ptr(), vel_rows.data_ptr(), row_ids.data_ptr(),
-                b, pos.data_ptr(), vel.data_ptr(), mass.data_ptr(), n,
-                centre.data_ptr(), float(eps2),
-                float(0.0 if pot_eps2 is None else pot_eps2), float(g),
-                int(with_jerk), pot_mode(with_pot, eps2, pot_eps2),
-                partial.data_ptr(), splits,
-                acc.data_ptr(), jerk.data_ptr(), pot.data_ptr(), stream)
-            key = "nbody_rows_mma"
-        else:
-            partial = torch.empty((splits, b, 7), dtype=torch.float32,
-                                  device=device)
-            err = lib.nbody_rows_launch(
-                pos_rows.data_ptr(), vel_rows.data_ptr(), row_ids.data_ptr(),
-                b, pos.data_ptr(), vel.data_ptr(), mass.data_ptr(), n,
-                float(eps2), float(0.0 if pot_eps2 is None else pot_eps2),
-                float(g), int(with_jerk), int(with_pot),
-                int(pot_eps2 is not None), group_size,
-                partial.data_ptr(), splits,
-                acc.data_ptr(), jerk.data_ptr(), pot.data_ptr(), stream)
-            key = "nbody_rows_group" if group_size > 0 else "nbody_rows"
-    if err != 0:
-        raise RuntimeError(f"{key} launch failed: cudaError {err}")
-    LAUNCHES[key] += 1
+        err = lib.nbody_rows_launch(
+            pos_rows.data_ptr(), vel_rows.data_ptr(), row_ids.data_ptr(),
+            b, pos.data_ptr(), vel.data_ptr(), mass.data_ptr(), n,
+            float(eps2), float(0.0 if pot_eps2 is None else pot_eps2),
+            float(g), int(with_jerk), int(with_pot),
+            int(pot_eps2 is not None), group_size,
+            partial.data_ptr(), splits,
+            acc.data_ptr(), jerk.data_ptr(), pot.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    _count(err, "nbody_rows_group" if group_size > 0 else "nbody_rows")
     return acc, jerk, pot
 
 
@@ -504,6 +589,9 @@ def nbody_predcols(pos_rows, vel_rows, row_ids, pos0, vel0, a0, j0, mass,
                                     use_mxu, centre)
     if device.type != "cuda":
         raise ValueError(f"nbody_predcols runs on cuda or cpu, not {device}")
+    if use_mxu:
+        return PredcolsMma(pos0, vel0, a0, j0, mass, eps2, g, centre)(
+            pos_rows, vel_rows, row_ids, tau)
     acc = torch.empty((b, 3), dtype=torch.float32, device=device)
     jerk = torch.empty_like(acc)
     if b == 0:
@@ -513,32 +601,146 @@ def nbody_predcols(pos_rows, vel_rows, row_ids, pos0, vel0, a0, j0, mass,
     tau = tau.reshape(()).contiguous()
     lib = load()
     splits = _splits(b, n)
+    partial = torch.empty((splits, b, 7), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        if use_mxu:
-            partial = torch.empty((splits, b, _NS_MMA), dtype=torch.float32,
-                                  device=device)
-            err = lib.nbody_predcols_mma_launch(
-                pos_rows.data_ptr(), vel_rows.data_ptr(), row_ids.data_ptr(),
-                b, pos0.data_ptr(), vel0.data_ptr(), a0.data_ptr(),
-                j0.data_ptr(), mass.data_ptr(), n, centre.data_ptr(),
-                tau.data_ptr(), float(eps2), float(g), partial.data_ptr(),
-                splits, acc.data_ptr(), jerk.data_ptr(), stream)
-            key = "nbody_predcols_mma"
-        else:
-            partial = torch.empty((splits, b, 7), dtype=torch.float32,
-                                  device=device)
-            err = lib.nbody_predcols_launch(
-                pos_rows.data_ptr(), vel_rows.data_ptr(), row_ids.data_ptr(),
-                b, pos0.data_ptr(), vel0.data_ptr(), a0.data_ptr(),
-                j0.data_ptr(), mass.data_ptr(), n, tau.data_ptr(),
-                float(eps2), float(g), partial.data_ptr(), splits,
-                acc.data_ptr(), jerk.data_ptr(), stream)
-            key = "nbody_predcols"
+        err = lib.nbody_predcols_launch(
+            pos_rows.data_ptr(), vel_rows.data_ptr(), row_ids.data_ptr(),
+            b, pos0.data_ptr(), vel0.data_ptr(), a0.data_ptr(),
+            j0.data_ptr(), mass.data_ptr(), n, tau.data_ptr(),
+            float(eps2), float(g), partial.data_ptr(), splits,
+            acc.data_ptr(), jerk.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    _count(err, "nbody_predcols")
+    return acc, jerk
+
+
+def _count(err: int, key: str) -> None:
+    """Raise on a launch's CUDA error, else count the launch."""
     if err != 0:
         raise RuntimeError(f"{key} launch failed: cudaError {err}")
     LAUNCHES[key] += 1
-    return acc, jerk
+
+
+# --------------------------------------------------------------------------
+# the matmul bodies' launches, prepared once
+# --------------------------------------------------------------------------
+
+def rows_mma_launcher(pos_rows, vel_rows, row_ids, pos, vel, mass,
+                      eps2: float, g: float = G_INTERNAL,
+                      with_jerk: bool = True, with_pot: bool = True,
+                      pot_eps2: float | None = None):
+    """One nbody_rows_mma launch of checked CUDA tensors (B, N > 0), its
+    outputs, scratch, centre and ctypes arguments made here, once.
+    Returns (launch, (acc, jerk, pot)): launch() issues the kernel on the
+    current stream through one ctypes call and returns the CUDA error.
+    nbody_rows(use_mxu=True) calls it once; a timer may call it many
+    times, rewriting the same outputs."""
+    b, n, device = pos_rows.shape[0], pos.shape[0], pos.device
+    fn = load().nbody_rows_mma_launch
+    acc = torch.empty((b, 3), dtype=torch.float32, device=device)
+    jerk = torch.empty_like(acc)
+    pot = torch.empty((b,), dtype=torch.float32, device=device)
+    centre = column_centre(pos, vel)
+    mode = pot_mode(with_pot, eps2, pot_eps2)
+    partial, counters, splits, cps = _mma_scratch(device, b, n, with_jerk,
+                                                  mode, False)
+    args = (pos_rows.data_ptr(), vel_rows.data_ptr(), row_ids.data_ptr(), b,
+            pos.data_ptr(), vel.data_ptr(), mass.data_ptr(), n,
+            centre.data_ptr(), float(eps2),
+            float(0.0 if pot_eps2 is None else pot_eps2), float(g),
+            int(with_jerk), mode, _ptr(partial), _ptr(counters), splits, cps,
+            acc.data_ptr(), jerk.data_ptr(), pot.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+
+    def launch(_keep=(centre, partial, counters)):
+        return fn(*args)
+
+    return launch, (acc, jerk, pot)
+
+
+class PredcolsMma:
+    """Kernel 2c's launches against one step's columns: the f32 CUDA
+    step-start columns, checked once, their centre (default: the
+    step-start means) and, per row count, the scratch, all made once per
+    step. Each call then checks its rows and tau and issues one launch
+    into fresh outputs: a returned tensor is never rewritten by a later
+    call."""
+
+    def __init__(self, pos0, vel0, a0, j0, mass, eps2: float,
+                 g: float = G_INTERNAL, centre=None):
+        n, device = pos0.shape[0], pos0.device
+        for name, t in (("pos0", pos0), ("vel0", vel0), ("a0", a0),
+                        ("j0", j0)):
+            _check(name, t, (n, 3), torch.float32, device)
+        _check("mass", mass, (n,), torch.float32, device)
+        if centre is None:
+            centre = column_centre(pos0, vel0)
+        _check("centre", centre, (6,), torch.float32, device)
+        self.n, self.device = n, device
+        self._keep = (pos0, vel0, a0, j0, mass, centre)
+        self._cols = (pos0.data_ptr(), vel0.data_ptr(), a0.data_ptr(),
+                      j0.data_ptr(), mass.data_ptr(), n, centre.data_ptr())
+        self._eps2, self._g = float(eps2), float(g)
+        self._fn = load().nbody_predcols_mma_launch
+        self._stream = torch.cuda.current_stream(device).cuda_stream
+        self._scratch = {}
+
+    def _scratch_for(self, b: int):
+        """_mma_scratch for b rows, made at the first call with b."""
+        got = self._scratch.get(b)
+        if got is None:
+            got = self._scratch[b] = _mma_scratch(self.device, b, self.n,
+                                                  True, POT_NONE, True)
+        return got
+
+    def _check_rows(self, pos_rows, vel_rows, row_ids, tau) -> None:
+        """The rows' and tau's device, dtype, shape and contiguity: one
+        pass of cheap comparisons, _check's messages on a mismatch."""
+        b, dev, f32 = pos_rows.shape[0], self.device, torch.float32
+        if not (pos_rows.dtype is f32 and vel_rows.dtype is f32
+                and row_ids.dtype is torch.int32 and tau.dtype is f32
+                and pos_rows.shape == (b, 3) and vel_rows.shape == (b, 3)
+                and row_ids.shape == (b,) and tau.numel() == 1
+                and pos_rows.device == dev and vel_rows.device == dev
+                and row_ids.device == dev and tau.device == dev
+                and pos_rows.is_contiguous() and vel_rows.is_contiguous()
+                and row_ids.is_contiguous() and tau.is_contiguous()):
+            _check("pos_rows", pos_rows, (b, 3), f32, dev)
+            _check("vel_rows", vel_rows, (b, 3), f32, dev)
+            _check("row_ids", row_ids, (b,), torch.int32, dev)
+            _check("tau", tau.reshape(()), (), f32, dev)
+
+    def launcher(self, pos_rows, vel_rows, row_ids, tau):
+        """(launch, (acc, jerk)) of one call: the rows and tau (one f32
+        element) checked, fresh outputs, the ctypes arguments; launch()
+        issues the kernel and returns the CUDA error (B, N > 0)."""
+        self._check_rows(pos_rows, vel_rows, row_ids, tau)
+        b = pos_rows.shape[0]
+        # one allocation for both outputs (each costs ~10 us of host time
+        # on an H100's machine)
+        acc, jerk = torch.empty((2, b, 3), dtype=torch.float32,
+                                device=self.device).unbind(0)
+        partial, counters, splits, cps = self._scratch_for(b)
+        args = (pos_rows.data_ptr(), vel_rows.data_ptr(), row_ids.data_ptr(),
+                b, *self._cols, tau.data_ptr(), self._eps2, self._g,
+                _ptr(partial), _ptr(counters), splits, cps, acc.data_ptr(),
+                jerk.data_ptr(), self._stream)
+        fn = self._fn
+
+        def launch(_keep=(pos_rows, vel_rows, row_ids, tau)):
+            return fn(*args)
+
+        return launch, (acc, jerk)
+
+    def __call__(self, pos_rows, vel_rows, row_ids, tau):
+        b = pos_rows.shape[0]
+        if b == 0 or self.n == 0:
+            self._check_rows(pos_rows, vel_rows, row_ids, tau)
+            z = torch.zeros((b, 3), dtype=torch.float32, device=self.device)
+            return z, z.clone()
+        launch, out = self.launcher(pos_rows, vel_rows, row_ids, tau)
+        _count(launch(), "nbody_predcols_mma")
+        return out
 
 
 # --------------------------------------------------------------------------
@@ -630,8 +832,29 @@ def make_pred_force_rows(pos0, vel0, a0, j0, mass, eps2: float = 0.0,
     column prediction fused into kernel 2. The f32 copies of the
     step-start columns, and with use_mxu (the default) their centre (the
     step-start means), are made HERE, once per step, outside the substep
-    loop; each substep is then one launch."""
+    loop; each substep is then one launch. On a card with use_mxu the
+    columns are checked and the matmul body's scratch made once per step
+    (PredcolsMma): a substep checks its rows and makes one ctypes call."""
     cols = tuple(_f32(t) for t in (pos0, vel0, a0, j0, mass))
+    if use_mxu and cols[0].device.type == "cuda":
+        plan = PredcolsMma(*cols, eps2, g)
+
+        def rows_at(pos_rows, vel_rows, row_ids, tau):
+            # converted only where needed: this runs once per substep
+            dtype, f32 = pos_rows.dtype, torch.float32
+            if dtype is not f32:
+                pos_rows, vel_rows = _f32(pos_rows), _f32(vel_rows)
+            if row_ids.dtype is not torch.int32:
+                row_ids = row_ids.to(torch.int32)
+            if not (isinstance(tau, torch.Tensor) and tau.dtype is f32):
+                tau = torch.as_tensor(tau, device=plan.device).to(f32)
+            a, j = plan(pos_rows.contiguous(), vel_rows.contiguous(),
+                        row_ids.contiguous(), tau.contiguous())
+            if dtype is not f32:
+                a, j = a.to(dtype), j.to(dtype)
+            return a, j
+
+        return rows_at
     centre = column_centre(cols[0], cols[1]) if use_mxu else None
 
     def rows_at(pos_rows, vel_rows, row_ids, tau):

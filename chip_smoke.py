@@ -2,11 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (al26_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # needs one CUDA card
+    python3 chip_smoke.py --mma  # phases 1, 2, 3d and kernel 2c at the
+                                 # tree slice's shape, nothing else
 
 Phases, one result line each (any failure exits non-zero):
 
   1. device   the card's name and power limit (nvidia-smi), CUDA present,
-              TF32 off;
+              TF32 off; the maximum SM clock (nvidia-smi) and the SM
+              count, which give the SFU's rsqrt rate of the bounds;
   2. build    nvcc builds csrc/nbody.cu and csrc/tree.cu from this checkout,
               one nvcc each, started together (timed; the ptxas lines);
   3. kernels  each kernel against its plain PyTorch version at N = 32768 on
@@ -54,7 +57,8 @@ The Barnes-Hut tier (force_impl="tree", fractal ICs), run in this order:
               on a row subset; bars as in phases 3 and 3b), a breakdown of
               one tree sweep, and the physics invariants; then
               tree_mac="relative" at N = 131072 for 5 steps (exact kernel-1
-              seeding sweep).
+              seeding sweep). Kernel 2c there (K = 512) also twice (the
+              same bits) and timed as in phase 3d.
 
 The flattened ensembles (parallel.ensemble, kernel 1's group windows):
 
@@ -90,8 +94,14 @@ sweep, as in the JAX package) and the entry path of a user:
               acceleration-only sweep and 256 scattered rows at 32768;
               kernel 2 at K = 256, tau != 0. Bars: 3e-4 of the max (kernel
               1), 5e-4 (kernel 2), 1e-4 (potential through the product),
-              1e-5 (explicit potential); the same bits on a repeat; median
-              times beside the FMA bodies' and the f32 plain versions';
+              1e-5 (explicit potential); the same bits on a repeat. Times:
+              each matmul body's device time per launch (CUDA events
+              around 50 back-to-back launches of its bare launcher,
+              arguments and outputs prepared once), its kernels' device
+              times by name (torch.profiler: one kernel a launch), the
+              host time of one wrapper call (kernel 2: one substep's
+              rows_at), beside the FMA bodies' and the f32 plain
+              versions';
   6.  cli     `python -m al26_tpu_torch.cli -n 1000 -rc 1 -t_f 1 --dtype
               f32 --seed 42 -f smoke -v` in a subprocess in a temporary
               directory (1000 steps, 102 saves): the state, yields and CSV
@@ -109,13 +119,16 @@ The run order: 1, 2, 3, 3d, 3b, 3c, 4, 4d, 4b, 4c, 5, 5b, 5c, 6, 6b, 6c.
 
 Then one JSON line with every kernel's launches (kernels 1-3 from phase 5b,
 the windowed kernel from the 64 x 1000 run of phase 5c, the matmul kernels
-from phase 6b), error (the largest of its comparisons), times, and the
-least time the card could take for the same work (bound_ms: the larger of
-the operations over their peak rate and the bytes over the HBM rate;
-bound_by says which; the FMA bodies' FLOPs at the FP32 rate, the matmul
-bodies' FP32 work outside the tensor cores at the FP32 rate or their
-3xTF32 products at the TF32 rate, whichever is longer, over the same
-pairs), and last the line
+from phase 6b), error (the largest of its comparisons), times (the matmul
+bodies: device-only `ms` and the wrapper's `host_ms`), and the least time
+the card could take for the same work: bound_ms, the largest of the FP32
+operations over the FP32 rate, the rsqrt a pair (two with a separately
+softened potential) over the SFU rate (16 a clock per SM at the maximum
+SM clock, read in phase 1), the matmul bodies' 3xTF32 products over the
+TF32 rate, and the bytes over the HBM rate; bound_by says "bytes" or
+"operations", bound_pipe which term ("fp32", "sfu", "tf32", "hbm"). The
+FMA bodies count 50 flops a pair with the jerk, 30 without, the matmul
+bodies their FP32 work outside the tensor cores. Last the line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -159,6 +172,13 @@ PAIR_FLOPS = {True: 50, False: 30}
 TF32_FLOPS = 495e12
 MMA_PAIR_FP32 = {"acc": 13, "jerk": 10, "pot_separate": 4}
 MMA_PRODUCT_FLOPS = 3 * 16
+# Hopper's SFU (MUFU) pipe: 16 rsqrt a clock per SM (the CUDA programming
+# guide's throughput table, compute capability 9.0); the SM count and the
+# maximum SM clock are read from the card in phase 1
+SFU_PER_CLK = 16
+_CARD = {"sms": 132, "sm_clock_hz": 1.98e9}
+# back-to-back launches per device-only timing
+MMA_REPS = 50
 
 
 def _line(phase: str, **kw) -> None:
@@ -179,33 +199,52 @@ def _abs_err(got, ref) -> float:
     return float((got.double() - ref.double()).abs().max())
 
 
-def _bound(pairs: float, with_jerk: bool, nbytes: float) -> dict:
+def _sfu_rate() -> float:
+    """rsqrt results a second: SFU_PER_CLK per SM x the SMs x the SM clock
+    at its maximum (phase 1 reads it from nvidia-smi)."""
+    return SFU_PER_CLK * _CARD["sms"] * _CARD["sm_clock_hz"]
+
+
+def _bound_of(terms: dict) -> dict:
+    """The largest of the times in `terms` ({pipe: ms}, pipes "fp32",
+    "tf32", "sfu", "hbm"): bound_ms, bound_by ("bytes" for the HBM term,
+    else "operations") and bound_pipe, the term that binds."""
+    pipe = max(terms, key=terms.get)
+    return {"bound_ms": terms[pipe],
+            "bound_by": "bytes" if pipe == "hbm" else "operations",
+            "bound_pipe": pipe}
+
+
+def _bound(pairs: float, with_jerk: bool, nbytes: float,
+           rsqrt: int = 1) -> dict:
     """The least time the card could take for `pairs` pair interactions
     that move `nbytes` (each input read once, each output written once):
-    the larger of the FLOPs over the FP32 rate and the bytes over the HBM
-    rate."""
-    ops_ms = 1e3 * pairs * PAIR_FLOPS[with_jerk] / FP32_FLOPS
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    the largest of the FLOPs over the FP32 rate, `rsqrt` reciprocal square
+    roots a pair over the SFU rate, and the bytes over the HBM rate."""
+    return _bound_of({"fp32": 1e3 * pairs * PAIR_FLOPS[with_jerk]
+                      / FP32_FLOPS,
+                      "sfu": 1e3 * pairs * rsqrt / _sfu_rate(),
+                      "hbm": 1e3 * nbytes / HBM_BYTES_PER_S})
 
 
 def _bound_mma(pairs: float, with_jerk: bool, pot_separate: bool,
                nbytes: float) -> dict:
     """_bound for a matmul body: its FP32 work outside the tensor cores at
-    the FP32 rate or its 3xTF32 C8 products (two with the jerk) at the
-    TF32 rate, whichever takes longer, against the bytes over the HBM
-    rate. The per-column work (centring, C8, kernel 2's prediction) is
-    under 1 % of the per-pair work at these shapes and is left out."""
+    the FP32 rate, its 3xTF32 C8 products (two with the jerk) at the TF32
+    rate, its rsqrt (two a pair with a separately softened potential) at
+    the SFU rate, or the bytes over the HBM rate, whichever takes longest.
+    The per-column work (centring, C8, kernel 2's prediction) is under 1 %
+    of the per-pair work at these shapes and is left out."""
     fp32 = (MMA_PAIR_FP32["acc"] + (MMA_PAIR_FP32["jerk"] if with_jerk
                                     else 0)
             + (MMA_PAIR_FP32["pot_separate"] if pot_separate else 0))
     products = 2 if with_jerk else 1
-    ops_ms = 1e3 * pairs * max(fp32 / FP32_FLOPS,
-                               products * MMA_PRODUCT_FLOPS / TF32_FLOPS)
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    return _bound_of({"fp32": 1e3 * pairs * fp32 / FP32_FLOPS,
+                      "tf32": 1e3 * pairs * products * MMA_PRODUCT_FLOPS
+                      / TF32_FLOPS,
+                      "sfu": 1e3 * pairs * (2 if pot_separate else 1)
+                      / _sfu_rate(),
+                      "hbm": 1e3 * nbytes / HBM_BYTES_PER_S})
 
 
 def _rows_bytes(b: int, n: int, with_jerk: bool, with_pot: bool) -> int:
@@ -237,6 +276,78 @@ def _median_ms(fn, reps: int, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
+def _device_ms(launch, reps: int = MMA_REPS, warmup: int = 3) -> float:
+    """Device time of one launch: CUDA events around `reps` back-to-back
+    calls of `launch` (a bare launcher, its arguments prepared once, which
+    returns the CUDA error), over reps. Fails if a launch failed. Also
+    the device time of a wrapper call whose kernels outlast its host
+    work (it returns tensors)."""
+    import torch
+
+    err = 0
+    for k in range(warmup + reps):
+        if k == warmup:
+            torch.cuda.synchronize()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+        r = launch()
+        if isinstance(r, int):
+            err |= r
+    t1.record()
+    torch.cuda.synchronize()
+    if err:
+        _fail(f"a timed launch failed: cudaError {err}")
+    return t0.elapsed_time(t1) / reps
+
+
+def _kernel_ms(call, reps: int = MMA_REPS) -> dict:
+    """A torch.profiler window over `reps` calls of `call`: each CUDA
+    kernel's own device time per call and its launches per call, by name;
+    {} where the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if ev.device_type == DeviceType.CUDA and us > 0:
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.replace("void ", "").split("(")[0]
+            out[name] = {"ms": us / 1e3 / reps, "per_call": ev.count / reps}
+    return out
+
+
+def _kernels_sum(call) -> float:
+    """Device ms of one call of `call` as the sum of its kernels' times
+    (_kernel_ms): for calls whose host work outlasts their kernels."""
+    return sum(v["ms"] for v in _kernel_ms(call).values())
+
+
+def _host_ms(call, reps: int = MMA_REPS) -> float:
+    """Host time of one call: a host clock around `reps` calls with no
+    synchronize between them, over reps."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * wall / reps
+
+
 def phase_device():
     import torch
 
@@ -247,13 +358,22 @@ def phase_device():
     if smi.returncode != 0:
         _fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if clk.returncode != 0:
+        _fail(f"nvidia-smi failed: {clk.stderr.strip()}")
+    mhz = clk.stdout.strip().splitlines()[0]
+    _CARD["sm_clock_hz"] = float(mhz.split()[0]) * 1e6
+    _CARD["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
     tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
             "cudnn": torch.backends.cudnn.allow_tf32}
     if any(tf32.values()):
         _fail(f"TF32 is on: {tf32}")
     _line("device", name=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
-          cuda=torch.version.cuda, tf32=tf32)
+          cuda=torch.version.cuda, tf32=tf32, sm_clock_max=mhz,
+          sms=_CARD["sms"], sfu_rsqrt_per_s=_sfu_rate())
     # a report for the port's io/ slice (its checkpoints are
     # zstd-compressed); it checks nothing
     _line("host packages", imports=_importable("zstandard", "tqdm",
@@ -361,7 +481,8 @@ def phase_kernels():
                 "launches": 0, "max_abs_err": abs_err, "ms": t_k,
                 "plain_ms": t_p,
                 **_bound(N_KERNEL * (N_KERNEL - 1), True,
-                         _rows_bytes(N_KERNEL, N_KERNEL, True, True)),
+                         _rows_bytes(N_KERNEL, N_KERNEL, True, True),
+                         rsqrt=2),
                 "library_ms": None}
 
     # kernel 2: K = 256 fast rows against columns predicted to tau
@@ -400,6 +521,51 @@ def phase_kernels():
                          256 * (12 + 12 + 4 + 24) + 52 * N_KERNEL + 4),
                 "library_ms": None}
     return [rec_rows, rec_pred]
+
+
+def _mma_timing(launch, wrapper, fma) -> dict:
+    """A matmul body's times: `ms` the device time of the bare launcher
+    `launch`, `kernels` its kernels' device times by name (profiler),
+    `host_ms` the host time of a `wrapper` call, `host_launch_ms` that of
+    the bare launcher (one ctypes call and the launch); beside it the FMA body's
+    on the same inputs (`fma`, a wrapper call): its device time over
+    back-to-back calls and its kernels by name."""
+    return {"ms": _device_ms(launch), "kernels": _kernel_ms(launch),
+            "host_ms": _host_ms(wrapper), "host_launch_ms": _host_ms(launch),
+            "fma_ms": _device_ms(fma), "fma_kernels": _kernel_ms(fma)}
+
+
+def _time_pred_mma(pf, vf, sel, pos, vel, a0, j0, mass, tau, eps2) -> dict:
+    """_mma_timing for kernel 2c on rows (pf, vf, ids sel) against the
+    step-start columns: the bare launcher of one substep, and the host
+    time of one substep's call (make_pred_force_rows's rows_at, made once
+    as a step makes it). The FMA body's device time is its kernels' sum
+    by the profiler: a wrapper call's host work outlasts its kernels. The
+    host time splits into the bare launch (`host_launch_ms`), the plan's
+    call (`host_plan_ms`: checks, two output allocations, the launch) and
+    one output allocation (`host_empty_ms`)."""
+    import torch
+
+    from al26_tpu_torch.ops import cuda_nbody as cn
+
+    plan = cn.PredcolsMma(pos, vel, a0, j0, mass, eps2)
+    launch, _ = plan.launcher(pf, vf, sel, tau)
+    rows_at = cn.make_pred_force_rows(pos, vel, a0, j0, mass, eps2)
+    fma = lambda: cn.nbody_predcols(pf, vf, sel, pos, vel, a0, j0, mass,
+                                    tau, eps2)
+    k, n = pf.shape[0], pos.shape[0]
+    # rows: positions, velocities, ids in, acc and jerk out (52 bytes);
+    # columns: step-start pos, vel, acc, jerk and mass (52 bytes)
+    return {"k": k, "n": n, **_bound_mma(k * (n - 1), True, False,
+                                         52 * k + 52 * n + 4),
+            "ms": _device_ms(launch),
+            "kernels": _kernel_ms(launch),
+            "host_ms": _host_ms(lambda: rows_at(pf, vf, sel, tau)),
+            "host_launch_ms": _host_ms(launch),
+            "host_plan_ms": _host_ms(lambda: plan(pf, vf, sel, tau)),
+            "host_empty_ms": _host_ms(lambda: torch.empty(
+                (k, 3), dtype=torch.float32, device=pos.device)),
+            "fma_ms": _kernels_sum(fma), "fma_kernels": _kernel_ms(fma)}
 
 
 def phase_kernel_mma():
@@ -454,8 +620,9 @@ def phase_kernel_mma():
              lambda: cn.nbody_rows_plain(d(pos), d(vel), ids, d(pos), d(vel),
                                          d(mass), eps2, use_mxu=True, **full),
              (MMA_TOL, MMA_TOL, KERNEL_TOL))
-        times[f"full{n}_ms"] = _median_ms(sweep(True), 10)
-        times[f"full{n}_fma_ms"] = _median_ms(sweep(False), 10)
+        launch, _ = cn.rows_mma_launcher(pos, vel, ids, pos, vel, mass,
+                                         eps2, **full)
+        times[f"full{n}"] = _mma_timing(launch, sweep(True), sweep(False))
         if n != N_KERNEL:
             continue
         times[f"full{n}_plain_f32_ms"] = _median_ms(
@@ -468,8 +635,8 @@ def phase_kernel_mma():
              lambda: cn.nbody_rows_plain(d(pos), d(vel), ids, d(pos), d(vel),
                                          d(mass), 0.125, use_mxu=True),
              (MMA_TOL, MMA_TOL, MMA_POT_TOL))
-        times["uncached_ms"] = _median_ms(prod(True), 10)
-        times["uncached_fma_ms"] = _median_ms(prod(False), 10)
+        times["uncached_ms"] = _device_ms(prod(True))
+        times["uncached_fma_ms"] = _device_ms(prod(False))
         # the acceleration-only sweep (leapfrog)
         accf = lambda mxu: sweep(mxu, with_jerk=False, with_pot=False,
                                  pot_eps2=None)
@@ -478,8 +645,8 @@ def phase_kernel_mma():
                                          d(mass), eps2, with_jerk=False,
                                          with_pot=False, use_mxu=True),
              (MMA_TOL, None, None))
-        times["acc_ms"] = _median_ms(accf(True), 10)
-        times["acc_fma_ms"] = _median_ms(accf(False), 10)
+        times["acc_ms"] = _device_ms(accf(True))
+        times["acc_fma_ms"] = _device_ms(accf(False))
         # 256 scattered rows (the fast-group row sweep)
         rng = np.random.default_rng(3)
         sel = torch.as_tensor(rng.choice(n, 256, replace=False),
@@ -493,8 +660,8 @@ def phase_kernel_mma():
                                          d(mass), eps2, with_pot=False,
                                          use_mxu=True),
              (MMA_TOL, MMA_TOL, None))
-        times["rows256_ms"] = _median_ms(rows(True), 20)
-        times["rows256_fma_ms"] = _median_ms(rows(False), 20)
+        times["rows256_ms"] = _kernels_sum(rows(True))
+        times["rows256_fma_ms"] = _kernels_sum(rows(False))
         # kernel 2: K = 256 rows against columns predicted to tau
         a0, j0, _ = cn.nbody_rows(pos, vel, ids, pos, vel, mass, eps2)
         tau = torch.tensor(0.5 * cfg.dt, dtype=torch.float32, device=dev)
@@ -506,13 +673,13 @@ def phase_kernel_mma():
         vf = vf.contiguous()
         pred = lambda mxu: (lambda: cn.nbody_predcols(
             pf, vf, sel, pos, vel, a0, j0, mass, tau, eps2, use_mxu=mxu))
+        times["predcols256"] = _time_pred_mma(pf, vf, sel, pos, vel, a0, j0,
+                                              mass, tau, eps2)
         hold("predcols256", pred(True),
              lambda: cn.nbody_predcols_plain(d(pf), d(vf), sel, d(pos),
                                              d(vel), d(a0), d(j0), d(mass),
                                              d(tau), eps2, use_mxu=True),
              (PRED_MMA_TOL, PRED_MMA_TOL), kernel="nbody_predcols_mma")
-        times["predcols256_ms"] = _median_ms(pred(True), 20)
-        times["predcols256_fma_ms"] = _median_ms(pred(False), 20)
         times["predcols256_plain_f32_ms"] = _median_ms(
             lambda: cn.nbody_predcols_plain(pf, vf, sel, pos, vel, a0, j0,
                                             mass, tau, eps2, use_mxu=True), 5)
@@ -522,8 +689,8 @@ def phase_kernel_mma():
           rel_err={k: v for k, (v, _) in errs.items()},
           tol={k: bar for k, (_, bar) in errs.items()},
           max_abs_err=abs_err, repeat_same_bits=repeat_same, **times,
-          fma_over_mma_full=times[f"full{N_KERNEL}_fma_ms"]
-          / times[f"full{N_KERNEL}_ms"])
+          mma_over_fma_full=times[f"full{N_KERNEL}"]["ms"]
+          / times[f"full{N_KERNEL}"]["fma_ms"])
     if bad or not repeat_same:
         _fail(f"matmul kernels: errors over their bars {bad}, repeat same "
               f"bits {repeat_same}")
@@ -531,7 +698,8 @@ def phase_kernel_mma():
                 "source": "al26_tpu_torch/csrc/nbody.cu",
                 "replaces": "al26_tpu/ops/pallas_nbody.py:209",
                 "launches": 0, "max_abs_err": abs_err["nbody_rows_mma"],
-                "ms": times[f"full{N_KERNEL}_ms"],
+                "ms": times[f"full{N_KERNEL}"]["ms"],
+                "host_ms": times[f"full{N_KERNEL}"]["host_ms"],
                 "plain_ms": times[f"full{N_KERNEL}_plain_f32_ms"],
                 **_bound_mma(N_KERNEL * (N_KERNEL - 1), True, True,
                              _rows_bytes(N_KERNEL, N_KERNEL, True, True)),
@@ -541,10 +709,11 @@ def phase_kernel_mma():
                 "replaces": "al26_tpu/ops/pallas_nbody.py:632",
                 "launches": 0,
                 "max_abs_err": abs_err["nbody_predcols_mma"],
-                "ms": times["predcols256_ms"],
+                "ms": times["predcols256"]["ms"],
+                "host_ms": times["predcols256"]["host_ms"],
                 "plain_ms": times["predcols256_plain_f32_ms"],
-                **_bound_mma(256 * (N_KERNEL - 1), True, False,
-                             256 * (12 + 12 + 4 + 24) + 52 * N_KERNEL + 4),
+                **{b: times["predcols256"][b]
+                   for b in ("bound_ms", "bound_by", "bound_pipe")},
                 "library_ms": None}
     return [rec_rows, rec_pred]
 
@@ -761,7 +930,7 @@ def phase_near_field():
             "launches": 0, "max_abs_err": abs_err, "ms": t_k,
             "plain_ms": t_p,
             **_bound(n_pairs * leaf * leaf - N_NEAR, True,
-                     56 * N_NEAR + 8 * n_pairs),
+                     56 * N_NEAR + 8 * n_pairs, rsqrt=2),
             "library_ms": None}
 
 
@@ -913,6 +1082,46 @@ def _sweep_breakdown(state, cfg) -> dict:
                                         warmup=1)}
 
 
+def _fast_rows(c, a0, j0, cfg):
+    """The subcycle's rows at a tree slice's state: the k_fast stars of
+    largest |a| predicted from the force cache to dt / 2; returns (pf, vf,
+    ids, tau)."""
+    import torch
+
+    from al26_tpu_torch.ops import cuda_nbody as cn
+
+    sel = torch.topk(a0.norm(dim=1), cfg.k_fast).indices.to(torch.int32)
+    tau = torch.tensor(0.5 * cfg.dt, dtype=torch.float32, device=a0.device)
+    pf, vf = cn.predict_columns(c.pos[sel], c.vel[sel], a0[sel], j0[sel],
+                                tau)
+    return pf.contiguous(), vf.contiguous(), sel, tau
+
+
+def _pred_mma_check(pf, vf, sel, pos, vel, a0, j0, mass, tau,
+                    eps2) -> dict:
+    """Kernel 2c at a main path's shape (the tree slice's K = k_fast rows
+    against all N columns) against its f64 plain version, twice (the same
+    bits?), and its times (_time_pred_mma)."""
+    import torch
+
+    from al26_tpu_torch.ops import cuda_nbody as cn
+
+    d = lambda t: t.double()
+    run = lambda: cn.nbody_predcols(pf, vf, sel, pos, vel, a0, j0, mass, tau,
+                                    eps2, use_mxu=True)
+    got, again = run(), run()
+    ref = cn.nbody_predcols_plain(d(pf), d(vf), sel, d(pos), d(vel), d(a0),
+                                  d(j0), d(mass), d(tau), eps2, use_mxu=True)
+    return {"rel_err": {k: _rel_err(g, r)
+                        for k, g, r in zip(("acc", "jerk"), got, ref)},
+            "max_abs_err": max(_abs_err(g, r) for g, r in zip(got, ref)),
+            "tol": PRED_MMA_TOL, "k": pf.shape[0], "n": pos.shape[0],
+            "repeat_same_bits": all(torch.equal(x, y)
+                                    for x, y in zip(got, again)),
+            "timing": _time_pred_mma(pf, vf, sel, pos, vel, a0, j0, mass,
+                                     tau, eps2)}
+
+
 def _main_path_kernel_checks(state, cache, cfg) -> dict:
     """Each kernel against its f64 plain version at the shapes the N_TREE
     tree slice gives it, on the slice's state after its last step:
@@ -970,24 +1179,15 @@ def _main_path_kernel_checks(state, cache, cfg) -> dict:
                     "max": int(runs.max()), "min": int(runs.min())})
 
     a0, j0 = cache[0], cache[1]
-    sel = torch.topk(a0.norm(dim=1), cfg.k_fast).indices.to(torch.int32)
-    tau = torch.tensor(0.5 * cfg.dt, dtype=torch.float32, device=dev)
-    pf, vf = cn.predict_columns(c.pos[sel], c.vel[sel], a0[sel], j0[sel],
-                                tau)
-    pf, vf = pf.contiguous(), vf.contiguous()
+    pf, vf, sel, tau = _fast_rows(c, a0, j0, cfg)
     got = cn.nbody_predcols(pf, vf, sel, c.pos, c.vel, a0, j0, c.mass, tau,
                             cfg.eps2)
     ref = cn.nbody_predcols_plain(d(pf), d(vf), sel, d(c.pos), d(c.vel),
                                   d(a0), d(j0), d(c.mass), d(tau), cfg.eps2)
     out["nbody_predcols"] = record(("acc", "jerk"), got, ref, PREDCOLS_TOL,
                                    k=cfg.k_fast, n=n)
-    got = cn.nbody_predcols(pf, vf, sel, c.pos, c.vel, a0, j0, c.mass, tau,
-                            cfg.eps2, use_mxu=True)
-    ref = cn.nbody_predcols_plain(d(pf), d(vf), sel, d(c.pos), d(c.vel),
-                                  d(a0), d(j0), d(c.mass), d(tau), cfg.eps2,
-                                  use_mxu=True)
-    out["nbody_predcols_mma"] = record(("acc", "jerk"), got, ref,
-                                       PRED_MMA_TOL, k=cfg.k_fast, n=n)
+    out["nbody_predcols_mma"] = _pred_mma_check(
+        pf, vf, sel, c.pos, c.vel, a0, j0, c.mass, tau, cfg.eps2)
 
     zeros = torch.zeros_like(c.pos)
     a1, _, p1 = cn.kernel_acc_jerk_pot(c.pos, zeros, c.mass, 1e-30,
@@ -1002,6 +1202,33 @@ def _main_path_kernel_checks(state, cache, cfg) -> dict:
                                eps2=1e-30)
     torch.cuda.synchronize()
     return out
+
+
+def phase_tree_pred_mma():
+    """Kernel 2c at the tree slice's shape (K = k_fast = 512 rows against
+    N_TREE fractal columns) on the step-start state of a fresh run
+    (init_cluster, fresh_cache): `--mma`'s stand-in for phase 5b's check,
+    which holds the state after 10 steps."""
+    import torch
+
+    from al26_tpu_torch import SimConfig
+    from al26_tpu_torch.sim import init_cluster
+    from al26_tpu_torch.sim.step import fresh_cache
+
+    cfg = SimConfig(n=N_TREE, model="fractal", rc=1.0, seed=42, dtype="f32",
+                    force_impl="tree")
+    state, _, cfg = init_cluster(cfg, device=torch.device("cuda"))
+    cache = fresh_cache(state, cfg, cfg.integrator, None, "tree")
+    c = state.cluster
+    pf, vf, sel, tau = _fast_rows(c, cache[0], cache[1], cfg)
+    rec = _pred_mma_check(pf, vf, sel, c.pos, c.vel, cache[0], cache[1],
+                          c.mass, tau, cfg.eps2)
+    _line("kernel mma tree", **rec)
+    if not (all(v < rec["tol"] for v in rec["rel_err"].values())
+            and rec["repeat_same_bits"]):
+        _fail(f"nbody_predcols_mma at K = {cfg.k_fast}, N = {N_TREE}: "
+              f"{rec['rel_err']}, repeat same bits "
+              f"{rec['repeat_same_bits']}")
 
 
 def phase_tree_slice():
@@ -1060,6 +1287,8 @@ def phase_tree_slice():
     for k, rec in kernel_checks.items():
         checks[k + "_matches_plain"] = all(
             v < rec["tol"] for v in rec["rel_err"].values())
+    checks["predcols_mma_repeat_same_bits"] = kernel_checks[
+        "nbody_predcols_mma"]["repeat_same_bits"]
     checks["near_field_no_overflow"] = not kernel_checks["near_field"][
         "overflow"]
     breakdown = _sweep_breakdown(state, cfg)
@@ -1175,7 +1404,8 @@ def phase_group_kernel():
         t_plain = _median_ms(lambda: cn.nbody_rows_plain(
             pos, vel, ids, pos, vel, mass, eps2, **mk, **kw), 3, warmup=1)
         pairs = b * n * (n - 1)
-        bound = _bound(pairs, False, _rows_bytes(total, total, False, True))
+        bound = _bound(pairs, False, _rows_bytes(total, total, False, True),
+                       rsqrt=2)
         _line("kernel nbody_rows_group", realizations=b, n=n, eps2=eps2,
               groups_spanned_by_rows=int(torch.unique(
                   sel.long() // n).numel()),
@@ -1548,6 +1778,10 @@ def main() -> int:
 
     phase_device()
     phase_build()
+    if sys.argv[1:] == ["--mma"]:
+        phase_kernel_mma()
+        phase_tree_pred_mma()
+        return 0
     records = phase_kernels()
     mma = phase_kernel_mma()
     records.append(phase_near_field())

@@ -296,6 +296,97 @@ def test_wrappers_check_arguments():
     assert not cn.use_kernel(64, torch.float64, "cuda")
 
 
+@pytest.mark.parametrize("b,n,slots", [
+    (32768, 32768, 396), (131072, 131072, 396), (256, 32768, 396),
+    (512, 409600, 396), (512, 409600, 264), (257, 257, 396),
+    (65536, 65536, 396), (100, 40000, 396), (3, 5, 396), (100, 1, 396),
+    (128, 1025, 8), (8192, 8192, 528)])
+def test_mma_plan_covers_columns_in_whole_tiles(b, n, slots):
+    """The matmul bodies' split planner: splits of whole 256-column tiles
+    cover [0, n) exactly once, only the last split ends in a ragged tile,
+    a block walks at least _MMA_MIN_TILES tiles where n has them, and
+    there are never more splits than tiles (B below one row block, N
+    below one tile and N = 1 included)."""
+    splits, per = cn.mma_plan(b, n, slots)
+    tiles = -(-n // cn._TJ)
+    assert 1 <= splits <= tiles
+    assert per >= min(cn._MMA_MIN_TILES, tiles)
+    cps = per * cn._TJ
+    ranges = [(s * cps, min(n, (s + 1) * cps)) for s in range(splits)]
+    covered = np.zeros(n, np.int64)
+    for lo, hi in ranges:
+        assert lo < hi and lo % cn._TJ == 0
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    ragged = [hi for lo, hi in ranges if (hi - lo) % cn._TJ]
+    assert ragged in ([], [n])
+    # the fewest splits among the plans within the slack of the best
+    # makespan: one split fewer (at its own tile count) is slower
+    row_blocks = -(-b // cn._TB)
+    span = -(-row_blocks * splits // slots) * per
+    if splits > 1:
+        per1 = -(-tiles // (splits - 1))
+        span1 = -(-row_blocks * -(-tiles // per1) // slots) * per1
+        assert span1 > span or per1 < cn._MMA_MIN_TILES
+
+
+@pytest.mark.parametrize("x", [
+    1.0, -1.0, 3.14159265, -2.718281828, 1e-30, 6.1e5, -1.2345678e-12,
+    0.0, -0.0, 1e-40, -3e-44, 1.17549435e-38, 3.0e38])
+def test_mask_split_is_exact(x):
+    """The matmul bodies' split of a per-pair weight (csrc/nbody.cu
+    split_mask): hi = x with its low 13 mantissa bits cleared is a TF32
+    value, lo = x - hi is exact in f32 with at most 13 significant bits,
+    and keeping lo's top 11 bits (what the tensor core reads) errs by
+    under 2^-21 |x| (2^-136 for a subnormal x): on normal, subnormal,
+    zero and negative inputs."""
+    x32 = np.float32(x)
+    hi = (np.array(x32).view(np.uint32) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+    lo = np.float32(x32 - hi)
+    assert np.float64(hi) + np.float64(lo) == np.float64(x32)   # exact
+    assert (np.array(hi).view(np.uint32) & 0x1FFF) == 0         # TF32
+    assert abs(np.float64(hi)) <= abs(np.float64(x32))
+    assert lo == 0 or np.sign(lo) == np.sign(x32)
+    if lo != 0:
+        m, _ = np.frexp(np.float64(lo))
+        assert (m * 2.0 ** 13) == np.round(m * 2.0 ** 13)       # <= 13 bits
+    lo_tf32 = (np.array(lo).view(np.uint32) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+    err = abs(np.float64(hi) + np.float64(lo_tf32) - np.float64(x32))
+    # a subnormal x: its low 13 stored bits, under 2^-136 in all
+    assert err <= max(2.0 ** -21 * abs(np.float64(x32)), 2.0 ** -136)
+
+
+@pytest.mark.parametrize("use_mxu", [False, True])
+def test_pred_rows_at_outputs_are_not_rewritten(use_mxu):
+    """make_pred_force_rows's rows_at (the subcycle's per-substep call)
+    returns fresh tensors: a call at a second tau leaves the first call's
+    results as they were, and each equals a fresh factory's call."""
+    n, k = 300, 32
+    pos, vel, mass = (T(a) for a in _system(n, seed=21))
+    rng = np.random.default_rng(22)
+    a0 = T((rng.normal(size=(n, 3)) * 0.1).astype(np.float32))
+    j0 = T((rng.normal(size=(n, 3)) * 0.05).astype(np.float32))
+    ids = T(rng.choice(n, k, replace=False).astype(np.int32))
+    rows = pos[ids.long()] + 1e-3
+    vrows = vel[ids.long()]
+    rows_at = cn.make_pred_force_rows(pos, vel, a0, j0, mass, 1e-3,
+                                      use_mxu=use_mxu)
+    first = rows_at(rows, vrows, ids, T(0.002))
+    kept = [t.clone() for t in first]
+    second = rows_at(rows, vrows, ids, T(0.004))
+    for t, c in zip(first, kept):
+        assert torch.equal(t, c)
+    for tau, got in ((0.002, first), (0.004, second)):
+        fresh = cn.make_pred_force_rows(pos, vel, a0, j0, mass, 1e-3,
+                                        use_mxu=use_mxu)(rows, vrows, ids,
+                                                         T(tau))
+        for g_, f_ in zip(got, fresh):
+            assert torch.equal(g_, f_)
+    assert not torch.equal(first[0], second[0])
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card():
     """Each CUDA kernel against its plain version on the card, at the
@@ -342,12 +433,23 @@ def test_mma_kernels_match_plain_on_card():
     """The matmul reductions (nbody_rows_mma, nbody_predcols_mma) against
     their f64 plain decomposition on a card, at the JAX package's bars
     (3e-4 of the max, 5e-4 for kernel 2, 1e-4 for a potential through the
-    product, 1e-5 for an explicit one), ragged and tiny shapes, off-centre;
-    a repeat gives the same bits."""
+    product, 1e-5 for an explicit one), ragged and tiny shapes, off-centre,
+    launches of one split and of many (kernel 2 at K = 512 among them);
+    three calls give the same bits (the split tickets are reset by every
+    launch)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
-    for n, b in ((777, 777), (4099, 256), (5, 3)):
+
+    def same_bits(fn):
+        got = fn()
+        for _ in range(2):
+            assert all(torch.equal(x, y) for x, y in zip(got, fn()))
+        return got
+
+    one_split = many_splits = False
+    for n, b in ((777, 777), (4099, 256), (5, 3), (257, 257), (65536, 512),
+                 (409, 1)):
         pos, vel, mass = (T(a, device=dev) for a in _system(n, seed=n,
                                                              offset=4.0))
         ids = torch.as_tensor(
@@ -360,11 +462,8 @@ def test_mma_kernels_match_plain_on_card():
                                   (0.125, {"pot_eps2": 1e-30}, 1e-5),
                                   (1e-3, {"with_jerk": False}, 1e-5),
                                   (1e-3, {"with_pot": False}, None)):
-            got = cn.nbody_rows(rp, rv, ids, pos, vel, mass, eps2,
-                                use_mxu=True, **kw)
-            again = cn.nbody_rows(rp, rv, ids, pos, vel, mass, eps2,
-                                  use_mxu=True, **kw)
-            assert all(torch.equal(x, y) for x, y in zip(got, again))
+            got = same_bits(lambda: cn.nbody_rows(
+                rp, rv, ids, pos, vel, mass, eps2, use_mxu=True, **kw))
             ref = cn.nbody_rows_plain(rp.double(), rv.double(), ids,
                                       pos.double(), vel.double(),
                                       mass.double(), eps2, use_mxu=True,
@@ -374,12 +473,12 @@ def test_mma_kernels_match_plain_on_card():
                     assert _rel(g_.cpu(), r_.cpu()) < bar
                 else:
                     assert not g_.any()
-        assert cn.LAUNCHES["nbody_rows_mma"] == before + 10
+        assert cn.LAUNCHES["nbody_rows_mma"] == before + 15
         a0 = 0.1 * torch.randn_like(pos)
         j0 = 0.05 * torch.randn_like(pos)
         tau = torch.tensor(0.0037, device=dev)
-        got = cn.nbody_predcols(rp, rv, ids, pos, vel, a0, j0, mass, tau,
-                                1e-3, use_mxu=True)
+        got = same_bits(lambda: cn.nbody_predcols(
+            rp, rv, ids, pos, vel, a0, j0, mass, tau, 1e-3, use_mxu=True))
         ref = cn.nbody_predcols_plain(rp.double(), rv.double(), ids,
                                       pos.double(), vel.double(),
                                       a0.double(), j0.double(),
@@ -387,6 +486,11 @@ def test_mma_kernels_match_plain_on_card():
                                       use_mxu=True)
         for g_, r_ in zip(got, ref):
             assert _rel(g_.cpu(), r_.cpu()) < 5e-4
+        splits, _ = cn.mma_plan(b, n, cn._mma_slots(dev, True,
+                                                     cn.POT_NONE, True))
+        one_split |= splits == 1
+        many_splits |= splits > 1
+    assert one_split and many_splits
     torch.cuda.synchronize()
 
 
