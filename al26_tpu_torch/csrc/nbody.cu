@@ -62,14 +62,21 @@
 //   * The gridDim.y column splits divide that window, not [0, n), so a
 //     64000-row sweep of 64 realizations of 1000 stars does not launch
 //     blocks that find no columns; tiles start at the window's start.
-//   * Each staged column carries its group id in shared memory beside its
-//     mass (one division per column and block; -2 beyond the split's end),
-//     so no pair divides; a row of group g keeps the pair when the column's
-//     group is g and the column is not its own id (a select, never a
-//     product with 0). A padding row (group -1) keeps none.
+//   * Its own kernel (group_sweep) on the FMA loop that kernel 3 shares
+//     (pair_fma.cuh: packed float4 columns, cp.async double buffering, the
+//     SFU's rsqrt), so the select runs only where a tile needs it. A row
+//     of group g keeps the columns of [g gs, (g + 1) gs) in its split that
+//     are not its own id (a select, never a product with 0, from the
+//     row's group range: no pair divides); a padding row (id -1) keeps
+//     none. A block whose live rows are all real and of one group sweeps
+//     only that group's columns, so its tiles run unmasked except the one
+//     that holds its own ids and a split's ragged last tile (8 x 10240:
+//     39 of a block's 40 tiles unmasked); a block that straddles groups,
+//     holds padding rows or scatters over the ensemble masks every tile.
 //   * The bound: B gs^2 useful pairs (one realization each), plus the
 //     masked pairs of blocks whose rows straddle two groups, roughly TB/gs
-//     of the work for contiguous rows; still bound by FP32 throughput.
+//     of the work for contiguous rows; bound by FP32 issue and, with a
+//     separately softened potential, close to the SFU's rate too.
 // The per-tile two-level sums and the ordered reduce_partials are shared
 // with the plain sweep, so a repeat gives the same bits.
 //
@@ -154,13 +161,20 @@
 
 #include <climits>
 
+#include "pair_fma.cuh"
+
 namespace {
+
+// the SFU's rsqrt and the cp.async helpers of the shared FMA loop
+using pair_fma::rsqrt_ftz;
+using pair_fma::cp_async4;
+using pair_fma::cp_async_wait_all;
 
 constexpr int TB = 128;      // rows (threads) per block
 constexpr int TJ = 256;      // source columns per shared-memory tile
 constexpr int NSUM = 7;      // ax ay az jx jy jz pot
 
-template <bool WITH_JERK, bool WITH_POT, bool SEP_POT, bool PRED, bool GROUP>
+template <bool WITH_JERK, bool WITH_POT, bool SEP_POT, bool PRED>
 __global__ void __launch_bounds__(TB) pair_sweep(
     const float* __restrict__ rows_pos,    // [B,3]
     const float* __restrict__ rows_vel,    // [B,3]
@@ -172,8 +186,7 @@ __global__ void __launch_bounds__(TB) pair_sweep(
     const float* __restrict__ jerk0,       // [N,3] PRED only
     const float* __restrict__ mass,        // [N]
     int n,
-    int cols_per_split,                    // !GROUP only
-    int gs,                                // GROUP only: stars per group
+    int cols_per_split,
     const float* __restrict__ tau_ptr,     // [1] PRED only
     float eps2,
     float pot_eps2,
@@ -182,8 +195,6 @@ __global__ void __launch_bounds__(TB) pair_sweep(
     __shared__ float sx[TJ], sy[TJ], sz[TJ];
     __shared__ float svx[TJ], svy[TJ], svz[TJ];
     __shared__ float sm[TJ];
-    __shared__ int sg[TJ];                 // GROUP only: column group ids
-    __shared__ int s_lo, s_hi;             // GROUP only: the rows' id range
 
     const int row = blockIdx.x * TB + threadIdx.x;
     const bool live = row < b;
@@ -207,36 +218,8 @@ __global__ void __launch_bounds__(TB) pair_sweep(
         t3h = t2h * tau * (1.0f / 3.0f);
     }
 
-    int c_begin, c_end;
-    int gi = -1;                           // this row's group
-    if (GROUP) {
-        if (threadIdx.x == 0) {
-            s_lo = INT_MAX;
-            s_hi = -1;
-        }
-        __syncthreads();
-        if (id >= 0) {
-            atomicMin(&s_lo, id);
-            atomicMax(&s_hi, id);
-            gi = id / gs;
-        }
-        __syncthreads();
-        int w_lo = 0, w_hi = 0;            // empty for all-padding blocks
-        if (s_hi >= 0) {
-            w_lo = (s_lo / gs) * gs;
-            w_hi = min(n, (s_hi / gs + 1) * gs);
-        }
-        // whole tiles per split from the window's start, as
-        // cols_per_split_of does for [0, n)
-        const int splits = static_cast<int>(gridDim.y);
-        const int tiles = (w_hi - w_lo + TJ - 1) / TJ;
-        const int per_split = (tiles + splits - 1) / splits * TJ;
-        c_begin = w_lo + static_cast<int>(blockIdx.y) * per_split;
-        c_end = min(w_hi, c_begin + per_split);
-    } else {
-        c_begin = blockIdx.y * cols_per_split;
-        c_end = min(n, c_begin + cols_per_split);
-    }
+    const int c_begin = blockIdx.y * cols_per_split;
+    const int c_end = min(n, c_begin + cols_per_split);
     float ax = 0.f, ay = 0.f, az = 0.f;
     float jx = 0.f, jy = 0.f, jz = 0.f;
     float pot = 0.f;
@@ -275,7 +258,6 @@ __global__ void __launch_bounds__(TB) pair_sweep(
             sx[k] = px; sy[k] = py; sz[k] = pz;
             svx[k] = qx; svy[k] = qy; svz[k] = qz;
             sm[k] = m;
-            if (GROUP) sg[k] = c < c_end ? c / gs : -2;
         }
         __syncthreads();
 
@@ -294,9 +276,7 @@ __global__ void __launch_bounds__(TB) pair_sweep(
             const float d2 = dx * dx + dy * dy + dz * dz;
             const float mj = sm[k];
             // self pair by id, padding and other splits' columns by range
-            // (GROUP: by the staged group id, -2 past the range)
-            const bool valid = GROUP ? (col != id) && (sg[k] == gi)
-                                     : (col != id) && (col < c_end);
+            const bool valid = (col != id) && (col < c_end);
             const float inv_r = valid ? rsqrtf(d2 + eps2) : 0.f;
             const float inv_r2 = inv_r * inv_r;
             const float w = mj * (inv_r * inv_r2);  // m_j / r^3, masked
@@ -367,21 +347,19 @@ int cols_per_split_of(int n, int splits)
     return tiles_per_split * TJ;
 }
 
-// The row sweep (no prediction) for one (jerk, potential) mode; GROUP
-// takes the block-diagonal window of gs-star groups.
-template <bool GROUP>
+// The row sweep (no prediction) for one (jerk, potential) mode.
 void launch_rows(dim3 grid, cudaStream_t st,
                  const float* rows_pos, const float* rows_vel,
                  const int* row_ids, int b, const float* pos,
-                 const float* vel, const float* mass, int n, int gs,
+                 const float* vel, const float* mass, int n,
                  float eps2, float pot_eps2,
                  int with_jerk, int with_pot, int sep_pot, float* partial)
 {
     const int cps = cols_per_split_of(n, grid.y);
 #define AL26_ROWS(J, P, S)                                                  \
-    pair_sweep<J, P, S, false, GROUP><<<grid, TB, 0, st>>>(                 \
+    pair_sweep<J, P, S, false><<<grid, TB, 0, st>>>(                        \
         rows_pos, rows_vel, row_ids, b, pos, vel, nullptr, nullptr, mass,   \
-        n, cps, gs, nullptr, eps2, pot_eps2, partial)
+        n, cps, nullptr, eps2, pot_eps2, partial)
     if (with_jerk) {
         if (!with_pot) AL26_ROWS(true, false, false);
         else if (sep_pot) AL26_ROWS(true, true, true);
@@ -392,6 +370,147 @@ void launch_rows(dim3 grid, cudaStream_t st,
         else AL26_ROWS(false, true, false);
     }
 #undef AL26_ROWS
+}
+
+// ---------------------------------------------------------------------------
+// kernel 1b: the block-diagonal group windows (group_size gs > 0)
+// ---------------------------------------------------------------------------
+
+// One (row block, column split) of a grouped sweep on the shared FMA loop
+// (pair_fma.cuh): the block's window of groups as in the header, columns
+// staged as packed float4 by cp.async into a double buffer (one barrier a
+// tile), and the select only in the tiles that need it: where the block's
+// live rows are all real and of one group, the split's columns are all
+// that group's, so only a tile that holds one of the rows' own ids (the
+// self pairs) or a split's ragged last tile is masked; a block whose rows
+// straddle groups, hold padding or scatter over the ensemble (a fast
+// group) masks every tile by each row's group range and id.
+template <bool WITH_JERK, bool WITH_POT, bool SEP_POT>
+__global__ void __launch_bounds__(TB) group_sweep(
+    const float* __restrict__ rows_pos,    // [B,3]
+    const float* __restrict__ rows_vel,    // [B,3]
+    const int* __restrict__ row_ids,       // [B] global column id, -1 = pad
+    int b,
+    const float* __restrict__ pos,         // [N,3]
+    const float* __restrict__ vel,         // [N,3]
+    const float* __restrict__ mass,        // [N]
+    int n,
+    int gs,                                // stars per group
+    float eps2,
+    float pot_eps2,
+    float* __restrict__ partial)           // [splits, B, NSUM]
+{
+    __shared__ pair_fma::Tile tiles[2];
+    __shared__ int s_lo, s_hi, s_pad;      // the rows' id range; a padding row
+
+    const int tid = threadIdx.x;
+    const int row = blockIdx.x * TB + tid;
+    const bool live = row < b;
+    pair_fma::Row r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    int id = -1;
+    if (live) {
+        r.x = rows_pos[3 * row + 0];
+        r.y = rows_pos[3 * row + 1];
+        r.z = rows_pos[3 * row + 2];
+        if (WITH_JERK) {
+            r.vx = rows_vel[3 * row + 0];
+            r.vy = rows_vel[3 * row + 1];
+            r.vz = rows_vel[3 * row + 2];
+        }
+        id = row_ids[row];
+    }
+    if (tid == 0) {
+        s_lo = INT_MAX;
+        s_hi = -1;
+        s_pad = 0;
+    }
+    __syncthreads();
+    if (id >= 0) {
+        atomicMin(&s_lo, id);
+        atomicMax(&s_hi, id);
+    } else if (live) {
+        s_pad = 1;
+    }
+    __syncthreads();
+    int w_lo = 0, w_hi = 0;                // empty for all-padding blocks
+    if (s_hi >= 0) {
+        w_lo = (s_lo / gs) * gs;
+        w_hi = min(n, (s_hi / gs + 1) * gs);
+    }
+    // whole tiles per split from the window's start, as cols_per_split_of
+    // does for [0, n)
+    const int splits = static_cast<int>(gridDim.y);
+    const int tiles_w = (w_hi - w_lo + TJ - 1) / TJ;
+    const int per_split = (tiles_w + splits - 1) / splits * TJ;
+    const int c_begin = w_lo + static_cast<int>(blockIdx.y) * per_split;
+    const int c_end = min(w_hi, c_begin + per_split);
+    const int n_tiles = c_end > c_begin ? (c_end - c_begin + TJ - 1) / TJ : 0;
+    // this row's columns in the split: its own group's (none for padding)
+    int g_lo = 0, g_hi = 0;
+    if (id >= 0) {
+        g_lo = max(c_begin, (id / gs) * gs);
+        g_hi = min(c_end, (id / gs + 1) * gs);
+    }
+    const bool uniform = s_pad == 0 && s_hi >= 0 && s_lo / gs == s_hi / gs;
+
+    auto stage = [&](int i, int buf) {
+        const int t0 = c_begin + i * TJ;
+        const int ncols = min(TJ, c_end - t0);
+        for (int k = tid; k < ncols; k += TB)
+            pair_fma::stage_column_async<WITH_JERK>(tiles[buf], k, pos, vel,
+                                                    mass, t0 + k);
+    };
+    pair_fma::Sums s = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (n_tiles > 0) {
+        stage(0, 0);
+        cp_async_wait_all();
+        __syncthreads();
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+        if (i + 1 < n_tiles) stage(i + 1, (i + 1) & 1);
+        const int t0 = c_begin + i * TJ;
+        const int ncols = min(TJ, c_end - t0);
+        const pair_fma::Tile& tile = tiles[i & 1];
+        if (uniform && ncols == TJ && (t0 > s_hi || t0 + TJ <= s_lo))
+            pair_fma::sweep_tile<WITH_JERK, WITH_POT, SEP_POT, false>(
+                tile, TJ, r, 0, TJ, -1, eps2, pot_eps2, s);
+        else
+            pair_fma::sweep_tile<WITH_JERK, WITH_POT, SEP_POT, true>(
+                tile, ncols, r, g_lo - t0, g_hi - t0, id - t0, eps2,
+                pot_eps2, s);
+        cp_async_wait_all();
+        __syncthreads();
+    }
+    if (live) {
+        float* out = partial + ((size_t)blockIdx.y * b + row) * NSUM;
+        out[0] = s.ax; out[1] = s.ay; out[2] = s.az;
+        out[3] = s.jx; out[4] = s.jy; out[5] = s.jz;
+        out[6] = s.pot;
+    }
+}
+
+// The grouped sweep for one (jerk, potential) mode.
+void launch_group(dim3 grid, cudaStream_t st,
+                  const float* rows_pos, const float* rows_vel,
+                  const int* row_ids, int b, const float* pos,
+                  const float* vel, const float* mass, int n, int gs,
+                  float eps2, float pot_eps2,
+                  int with_jerk, int with_pot, int sep_pot, float* partial)
+{
+#define AL26_GROUP(J, P, S)                                                 \
+    group_sweep<J, P, S><<<grid, TB, 0, st>>>(                              \
+        rows_pos, rows_vel, row_ids, b, pos, vel, mass, n, gs, eps2,        \
+        pot_eps2, partial)
+    if (with_jerk) {
+        if (!with_pot) AL26_GROUP(true, false, false);
+        else if (sep_pot) AL26_GROUP(true, true, true);
+        else AL26_GROUP(true, true, false);
+    } else {
+        if (!with_pot) AL26_GROUP(false, false, false);
+        else if (sep_pot) AL26_GROUP(false, true, true);
+        else AL26_GROUP(false, true, false);
+    }
+#undef AL26_GROUP
 }
 
 // ---------------------------------------------------------------------------
@@ -514,26 +633,6 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
     mma_tf32(d, ahi, bh0, bh1);
 }
 
-// 1 / sqrt(x) on the SFU without the subnormal-input fix-up rsqrtf
-// carries: x is d2 + a softening >= 1e-30, never subnormal
-__device__ __forceinline__ float rsqrt_ftz(float x)
-{
-    float y;
-    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src)
-{
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                 :: "r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all()
-{
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // Copy column c's raw words into this thread's slot k of `raw` (nothing
 // past c_end); the copy completes at the next cp_async_wait_all.
@@ -1025,13 +1124,13 @@ int nbody_rows_launch(
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     dim3 grid((b + TB - 1) / TB, splits);
     if (group_size > 0)
-        launch_rows<true>(grid, st, rows_pos, rows_vel, row_ids, b, pos, vel,
-                          mass, n, group_size, eps2, pot_eps2, with_jerk,
-                          with_pot, sep_pot, partial);
+        launch_group(grid, st, rows_pos, rows_vel, row_ids, b, pos, vel,
+                     mass, n, group_size, eps2, pot_eps2, with_jerk,
+                     with_pot, sep_pot, partial);
     else
-        launch_rows<false>(grid, st, rows_pos, rows_vel, row_ids, b, pos,
-                           vel, mass, n, 0, eps2, pot_eps2, with_jerk,
-                           with_pot, sep_pot, partial);
+        launch_rows(grid, st, rows_pos, rows_vel, row_ids, b, pos, vel,
+                    mass, n, eps2, pot_eps2, with_jerk, with_pot, sep_pot,
+                    partial);
     const int rb = 256;
     reduce_partials<<<(b * NSUM + rb - 1) / rb, rb, 0, st>>>(
         partial, splits, b, g, with_jerk, with_pot, acc, jerk, pot);
@@ -1050,9 +1149,9 @@ int nbody_predcols_launch(
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int cps = cols_per_split_of(n, splits);
     dim3 grid((b + TB - 1) / TB, splits);
-    pair_sweep<true, false, false, true, false><<<grid, TB, 0, st>>>(
+    pair_sweep<true, false, false, true><<<grid, TB, 0, st>>>(
         rows_pos, rows_vel, row_ids, b, pos0, vel0, acc0, jerk0, mass, n,
-        cps, 0, tau, eps2, 0.f, partial);
+        cps, tau, eps2, 0.f, partial);
     const int rb = 256;
     reduce_partials<<<(b * NSUM + rb - 1) / rb, rb, 0, st>>>(
         partial, splits, b, g, 1, 0, acc, jerk, nullptr);

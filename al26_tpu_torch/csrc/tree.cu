@@ -2,7 +2,7 @@
 // shared library with a plain C interface and bound with ctypes
 // (al26_tpu_torch/ops/cuda_tree.py builds and loads it at first use).
 //
-//   near_tiles  replaces al26_tpu/ops/pallas_tree.py::_near_kernel (entry
+//   near_items  replaces al26_tpu/ops/pallas_tree.py::_near_kernel (entry
 //               point pallas_p2p_near_field): the exact pair sums of the
 //               Barnes-Hut tier over the MAC-failing (target leaf block,
 //               source leaf block) pairs. Stars are Morton-sorted into B
@@ -14,204 +14,236 @@
 //               over the source slots j of every source block paired with
 //               the row's block.
 //
-// Input: the flat target-major pair list of ops.tree.pack_pair_list as
-// per-target-block runs (src[start[t] .. start[t] + count[t]) are the
-// source blocks of target block t). One CTA per target block, one thread
-// per target row (a loop over row chunks when leaf > blockDim), so every
-// output row is written by exactly one thread: no atomics, and a repeat
-// run gives the same bits. Blocks with no pairs write zeros.
+// What bounds it: each pair costs about 50 flops with the jerk (30
+// without) and one rsqrt (two with a separate potential softening); a
+// source block (leaf x 28 bytes) is read once per target block that pairs
+// with it, from L2. So it is bound by FP32 issue, as the direct sweep is.
+// Three things kept an earlier design (one CTA per target block over every
+// listed pair) at ~6x its bound, and the design answers each:
 //
-// What bounds it: each pair costs about 50 flops with jerk (30 without)
-// and one rsqrt (two with a separate potential softening); each source
-// block (leaf * 28 bytes) is read once per target block that pairs with
-// it, from L2. So, like the direct sweep, it is bound by FP32 and
-// SFU throughput. The source block is staged through shared memory as SoA
-// float arrays in tiles of TJ, the inner loop reads broadcast
-// shared-memory words, and the seven sums live in registers. Sums are
-// taken per tile (at most TJ terms), then added to the running totals, so
-// f32 round-off grows with TJ + pairs * leaf / TJ terms rather than with
-// the full pair count.
+//   * Padding pairs. B = 2^D blocks; the blocks past the last real star
+//     hold only padding slots (zero mass, at the last star's position).
+//     Two such blocks are coincident with radius 0, so the geometric MAC
+//     (r < theta (d - r_b): 0 < 0) never accepts them and every padding
+//     block pairs with every other: at N = 409600 (B = 2048, 448 padding
+//     blocks) 61 % of the listed pairs. A source block of padding slots
+//     only adds masked zeros, so the wrapper's item table
+//     (cuda_tree.near_items) leaves out every source block s with
+//     s * leaf >= n_true. Padding slots come last, so these are the last
+//     entries of each target's run. Pairs of a padding target with a real
+//     source stay: the contract defines those rows.
+//   * Load balance. Run lengths are heavy-tailed (N = 131072: mean 57
+//     source blocks, p99 199, max 512), and with one CTA per target block
+//     the longest run set the kernel's time. Each target block's run is
+//     cut into work items of at most ITEM_PAIRS source blocks
+//     (cuda_tree.ITEM_PAIRS); one CTA takes one item. A target with one
+//     item writes its rows directly; the items of a target with several
+//     write partial slabs, which near_reduce sums in item order, so the
+//     bits do not depend on scheduling. The grid is a static bound on the
+//     item count (B + ceil(budget / ITEM_PAIRS)), so nothing is read back
+//     to the host; the CTAs past the real items exit at once.
+//   * The inner loop: pair_fma.cuh (packed float4 columns, cp.async double
+//     buffering, the SFU's rsqrt, masks only in the source blocks that can
+//     hold a masked pair: the target's own block (the self pair) and the
+//     one block that straddles n_true (padding columns)).
 //
-// Load balance, not addressed here: partner counts are heavy-tailed on
-// fractal ICs (N = 4e5, theta = 0.75: mean 171 of 2048 blocks, max 1515),
-// and one CTA per target block is bounded by the longest run.
-//
-// Masks are selects, never products with 0 (0 * inf = NaN): the self pair
-// by sorted slot (each star owns exactly one slot) and padding columns by
-// slot >= n_true. The squared distance d2 is formed once; r^2 = d2 + eps2
-// for the forces and d2 + pot_eps2 for the separately softened potential
-// (the JAX form r2 - eps2 + pot_eps2 cancels in f32 when d2 << eps2).
+// Sums are taken per tile, then per item, then across a target's items in
+// item order, so the f32 round-off grows with the tile width plus the tile
+// and item counts, not with the pair count; a repeat gives the same bits.
+// The squared distance is formed once; r^2 = d2 + eps2 for the forces and
+// d2 + pot_eps2 for the separately softened potential.
 
 #include <cuda_runtime.h>
 
+#include "pair_fma.cuh"
+
 namespace {
 
-constexpr int TJ = 256;        // source columns per shared-memory tile
+using pair_fma::Row;
+using pair_fma::Sums;
+using pair_fma::Tile;
+using pair_fma::TILE;
+
 constexpr int MAX_THREADS = 256;
+constexpr int NS = 7;          // ax ay az jx jy jz pot per partial row
+
+// Everything a launch needs, passed by value (kernel parameter space).
+struct NearArgs {
+    const float* pos;          // [B*L, 3] sorted, padded
+    const float* vel;          // [B*L, 3] (WITH_JERK only)
+    const float* mass;         // [B*L] (padding slots 0)
+    const int* src;            // [P] source block of each listed pair
+    const int* item;           // [3, I] target block (b: none), first pair,
+                               // pairs of each work item
+    const int* tinfo;          // [2, B] first item, items of each target
+    int n_items, b, leaf, n_true;
+    float eps2, pot_eps2, g;
+    float* partial;            // [I, NS, L] partial slabs
+    float* acc;                // [B*L, 3]
+    float* jerk;               // [B*L, 3] (WITH_JERK only)
+    float* pot;                // [B*L]
+};
 
 template <bool WITH_JERK, bool SEP_POT>
-__global__ void __launch_bounds__(MAX_THREADS) near_tiles(
-    const float* __restrict__ pos,     // [B*L, 3] sorted, padded
-    const float* __restrict__ vel,     // [B*L, 3] (WITH_JERK only)
-    const float* __restrict__ mass,    // [B*L] (padding slots 0)
-    const int* __restrict__ src,       // [P] source block per pair
-    const int* __restrict__ start,     // [B] first pair of each target
-    const int* __restrict__ count,     // [B] pairs of each target
-    int leaf, int n_true, float eps2, float pot_eps2, float g,
-    float* __restrict__ acc,           // [B*L, 3]
-    float* __restrict__ jerk,          // [B*L, 3] (WITH_JERK only)
-    float* __restrict__ pot)           // [B*L]
+__global__ void __launch_bounds__(MAX_THREADS) near_items(
+    const __grid_constant__ NearArgs a)
 {
-    __shared__ float sx[TJ], sy[TJ], sz[TJ];
-    __shared__ float svx[TJ], svy[TJ], svz[TJ];
-    __shared__ float sm[TJ];
+    __shared__ Tile tiles[2];
 
-    const int t = blockIdx.x;
-    const int p_begin = start[t];
-    const int p_end = p_begin + count[t];
+    const int it = blockIdx.x;
+    const int t = a.item[it];
+    if (t >= a.b) return;                  // past the real items
+    const int p0 = a.item[a.n_items + it];
+    const int np = a.item[2 * a.n_items + it];
+    const int items_of_t = a.tinfo[a.b + t];
+    const int leaf = a.leaf;
+    const int tpb = (leaf + TILE - 1) / TILE;   // tiles per source block
+    const int n_tiles = np * tpb;
+    const int tid = threadIdx.x;
+
+    // stage tile j (source block src[p0 + j / tpb], columns from
+    // (j % tpb) * TILE) into buffer `buf`
+    auto stage = [&](int j, int buf) {
+        const int s = a.src[p0 + j / tpb];
+        const int c0 = (j % tpb) * TILE;
+        const int ncols = min(TILE, leaf - c0);
+        for (int k = tid; k < ncols; k += blockDim.x)
+            pair_fma::stage_column_async<WITH_JERK>(
+                tiles[buf], k, a.pos, a.vel, a.mass, s * leaf + c0 + k);
+    };
 
     for (int r0 = 0; r0 < leaf; r0 += blockDim.x) {
-        const int r = r0 + threadIdx.x;
+        const int r = r0 + tid;
         const bool live = r < leaf;
         const int grow = t * leaf + r;             // this row's slot
-        float xi = 0.f, yi = 0.f, zi = 0.f;
-        float vxi = 0.f, vyi = 0.f, vzi = 0.f;
+        Row row = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
         if (live) {
-            xi = pos[3 * grow + 0];
-            yi = pos[3 * grow + 1];
-            zi = pos[3 * grow + 2];
+            row.x = a.pos[3 * grow + 0];
+            row.y = a.pos[3 * grow + 1];
+            row.z = a.pos[3 * grow + 2];
             if (WITH_JERK) {
-                vxi = vel[3 * grow + 0];
-                vyi = vel[3 * grow + 1];
-                vzi = vel[3 * grow + 2];
+                row.vx = a.vel[3 * grow + 0];
+                row.vy = a.vel[3 * grow + 1];
+                row.vz = a.vel[3 * grow + 2];
             }
         }
-        float ax = 0.f, ay = 0.f, az = 0.f;
-        float jx = 0.f, jy = 0.f, jz = 0.f;
-        float pt = 0.f;
+        Sums s = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 
-        for (int p = p_begin; p < p_end; ++p) {
-            const int s = src[p];
-            for (int c0 = 0; c0 < leaf; c0 += TJ) {
-                const int ncols = min(TJ, leaf - c0);
-                const int gcol0 = s * leaf + c0;
-                __syncthreads();  // the previous tile has been consumed
-                for (int k = threadIdx.x; k < ncols; k += blockDim.x) {
-                    const int c = gcol0 + k;
-                    sx[k] = pos[3 * c + 0];
-                    sy[k] = pos[3 * c + 1];
-                    sz[k] = pos[3 * c + 2];
-                    if (WITH_JERK) {
-                        svx[k] = vel[3 * c + 0];
-                        svy[k] = vel[3 * c + 1];
-                        svz[k] = vel[3 * c + 2];
-                    }
-                    sm[k] = mass[c];
-                }
-                __syncthreads();
-
-                float tax = 0.f, tay = 0.f, taz = 0.f;
-                float tjx = 0.f, tjy = 0.f, tjz = 0.f;
-                float tpt = 0.f;
-#pragma unroll 4
-                for (int k = 0; k < ncols; ++k) {
-                    const int gcol = gcol0 + k;
-                    const float dx = sx[k] - xi;
-                    const float dy = sy[k] - yi;
-                    const float dz = sz[k] - zi;
-                    const float d2 = dx * dx + dy * dy + dz * dz;
-                    const float mj = sm[k];
-                    const bool valid = (gcol != grow) && (gcol < n_true);
-                    const float inv_r = valid ? rsqrtf(d2 + eps2) : 0.f;
-                    const float inv_r2 = inv_r * inv_r;
-                    const float w = mj * (inv_r * inv_r2);  // m_j / r^3
-                    tax += w * dx;
-                    tay += w * dy;
-                    taz += w * dz;
-                    if (WITH_JERK) {
-                        const float dvx = svx[k] - vxi;
-                        const float dvy = svy[k] - vyi;
-                        const float dvz = svz[k] - vzi;
-                        const float q =
-                            3.0f * (dx * dvx + dy * dvy + dz * dvz) * inv_r2;
-                        tjx += w * (dvx - q * dx);
-                        tjy += w * (dvy - q * dy);
-                        tjz += w * (dvz - q * dz);
-                    }
-                    if (SEP_POT) {
-                        const float inv_rp =
-                            valid ? rsqrtf(d2 + pot_eps2) : 0.f;
-                        tpt -= mj * inv_rp;
-                    } else {
-                        tpt -= mj * inv_r;
-                    }
-                }
-                ax += tax; ay += tay; az += taz;
-                jx += tjx; jy += tjy; jz += tjz;
-                pt += tpt;
-            }
+        // double buffer: tile j + 1 is copied (cp.async) while tile j is
+        // swept; one barrier a tile (the last one also ends a row pass)
+        if (n_tiles > 0) {
+            stage(0, 0);
+            pair_fma::cp_async_wait_all();
+            __syncthreads();
         }
-        if (live) {
-            acc[3 * grow + 0] = g * ax;
-            acc[3 * grow + 1] = g * ay;
-            acc[3 * grow + 2] = g * az;
+        for (int j = 0; j < n_tiles; ++j) {
+            if (j + 1 < n_tiles) stage(j + 1, (j + 1) & 1);
+            const int sb = a.src[p0 + j / tpb];
+            const int c0 = (j % tpb) * TILE;
+            const int ncols = min(TILE, leaf - c0);
+            const int col0 = sb * leaf + c0;
+            const Tile& tile = tiles[j & 1];
+            // masks only where the tile can hold the self pair (the
+            // target's own block) or padding columns (the block that
+            // straddles n_true)
+            if (sb == t || col0 + ncols > a.n_true)
+                pair_fma::sweep_tile<WITH_JERK, true, SEP_POT, true>(
+                    tile, ncols, row, 0, a.n_true - col0,
+                    sb == t ? r - c0 : -1, a.eps2, a.pot_eps2, s);
+            else
+                pair_fma::sweep_tile<WITH_JERK, true, SEP_POT, false>(
+                    tile, ncols, row, 0, ncols, -1, a.eps2, a.pot_eps2, s);
+            pair_fma::cp_async_wait_all();
+            __syncthreads();
+        }
+        if (!live) continue;
+        if (items_of_t == 1) {
+            a.acc[3 * grow + 0] = a.g * s.ax;
+            a.acc[3 * grow + 1] = a.g * s.ay;
+            a.acc[3 * grow + 2] = a.g * s.az;
             if (WITH_JERK) {
-                jerk[3 * grow + 0] = g * jx;
-                jerk[3 * grow + 1] = g * jy;
-                jerk[3 * grow + 2] = g * jz;
+                a.jerk[3 * grow + 0] = a.g * s.jx;
+                a.jerk[3 * grow + 1] = a.g * s.jy;
+                a.jerk[3 * grow + 2] = a.g * s.jz;
             }
-            pot[grow] = g * pt;
+            a.pot[grow] = a.g * s.pot;
+        } else {
+            float* out = a.partial + (size_t)it * NS * leaf + r;
+            out[0 * leaf] = s.ax;
+            out[1 * leaf] = s.ay;
+            out[2 * leaf] = s.az;
+            out[3 * leaf] = s.jx;
+            out[4 * leaf] = s.jy;
+            out[5 * leaf] = s.jz;
+            out[6 * leaf] = s.pot;
         }
     }
 }
 
-template <bool WITH_JERK, bool SEP_POT>
-void launch(int b, int threads, cudaStream_t st, const float* pos,
-            const float* vel, const float* mass, const int* src,
-            const int* start, const int* count, int leaf, int n_true,
-            float eps2, float pot_eps2, float g, float* acc, float* jerk,
-            float* pot)
+// The rows of the targets with several items: their partial slabs summed
+// in item order and scaled by G. One thread per (target block, sum, row),
+// so neighbouring threads read neighbouring words of a slab.
+__global__ void near_reduce(const __grid_constant__ NearArgs a,
+                            int with_jerk)
 {
-    near_tiles<WITH_JERK, SEP_POT><<<b, threads, 0, st>>>(
-        pos, vel, mass, src, start, count, leaf, n_true, eps2, pot_eps2, g,
-        acc, jerk, pot);
+    const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    const int leaf = a.leaf;
+    if (e >= (size_t)a.b * NS * leaf) return;
+    const int r = static_cast<int>(e % leaf);
+    const int c = static_cast<int>((e / leaf) % NS);
+    const int t = static_cast<int>(e / ((size_t)leaf * NS));
+    const int k1 = a.tinfo[a.b + t];
+    if (k1 <= 1 || (!with_jerk && c >= 3 && c < 6)) return;
+    const int i0 = a.tinfo[t];
+    float sum = 0.f;
+    for (int k = 0; k < k1; ++k)
+        sum += a.partial[((size_t)(i0 + k) * NS + c) * leaf + r];
+    const int grow = t * leaf + r;
+    if (c < 3)
+        a.acc[3 * grow + c] = a.g * sum;
+    else if (c < 6)
+        a.jerk[3 * grow + c - 3] = a.g * sum;
+    else
+        a.pot[grow] = a.g * sum;
+}
+
+template <bool WITH_JERK, bool SEP_POT>
+void launch(const NearArgs& a, int threads, cudaStream_t st)
+{
+    near_items<WITH_JERK, SEP_POT><<<a.n_items, threads, 0, st>>>(a);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Kernel 3. `threads` (a multiple of 32, at most 256) rows per pass.
-// Returns cudaGetLastError() after the launch.
+// Kernel 3: the work items (one CTA each, `threads` rows a pass, a
+// multiple of 32, at most 256), then the ordered sum of the targets with
+// several items. Returns cudaGetLastError() after the two launches.
 int near_field_launch(
     const float* pos, const float* vel, const float* mass,
-    const int* src, const int* start, const int* count,
-    int b, int leaf, int n_true, int threads,
+    const int* src, const int* item, const int* tinfo,
+    int n_items, int b, int leaf, int n_true, int threads,
     float eps2, float pot_eps2, float g, int with_jerk, int sep_pot,
-    float* acc, float* jerk, float* pot, void* stream)
+    float* partial, float* acc, float* jerk, float* pot, void* stream)
 {
-    if (b == 0) return 0;
-    if (threads <= 0 || threads > MAX_THREADS) return cudaErrorInvalidValue;
+    if (b == 0 || n_items == 0) return 0;
+    if (threads <= 0 || threads > MAX_THREADS || threads % 32 != 0)
+        return cudaErrorInvalidValue;
+    const NearArgs a{pos, vel, mass, src, item, tinfo, n_items, b, leaf,
+                     n_true, eps2, pot_eps2, g, partial, acc, jerk, pot};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (with_jerk) {
-        if (sep_pot)
-            launch<true, true>(b, threads, st, pos, vel, mass, src, start,
-                               count, leaf, n_true, eps2, pot_eps2, g, acc,
-                               jerk, pot);
-        else
-            launch<true, false>(b, threads, st, pos, vel, mass, src, start,
-                                count, leaf, n_true, eps2, pot_eps2, g, acc,
-                                jerk, pot);
+        if (sep_pot) launch<true, true>(a, threads, st);
+        else launch<true, false>(a, threads, st);
     } else {
-        if (sep_pot)
-            launch<false, true>(b, threads, st, pos, vel, mass, src, start,
-                                count, leaf, n_true, eps2, pot_eps2, g, acc,
-                                jerk, pot);
-        else
-            launch<false, false>(b, threads, st, pos, vel, mass, src, start,
-                                 count, leaf, n_true, eps2, pot_eps2, g, acc,
-                                 jerk, pot);
+        if (sep_pot) launch<false, true>(a, threads, st);
+        else launch<false, false>(a, threads, st);
     }
+    const size_t work = (size_t)b * NS * leaf;
+    const int rb = 256;
+    near_reduce<<<static_cast<unsigned>((work + rb - 1) / rb), rb, 0, st>>>(
+        a, with_jerk);
     return static_cast<int>(cudaGetLastError());
 }
 

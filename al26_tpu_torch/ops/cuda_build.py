@@ -2,10 +2,10 @@
 
 Each source is compiled by nvcc for sm_90a into a shared library with a
 plain C interface, in `al26_tpu_torch/_build/` (gitignored), named after a
-hash of its own source so an edited .cu rebuilds and an unchanged one is
-reused. The kernel modules bind the libraries with ctypes
-(ops.cuda_nbody, ops.cuda_tree). A missing nvcc or a failed build
-raises; nothing falls back.
+hash of its source and of the shared headers (csrc/*.cuh), so an edited
+.cu or header rebuilds and an unchanged one is reused. The kernel modules
+bind the libraries with ctypes (ops.cuda_nbody, ops.cuda_tree). A missing
+nvcc or a failed build raises; nothing falls back.
 
 `build_all()` starts one nvcc per source at once and waits for all of
 them, so a fresh checkout builds in the time of the slowest source; it
@@ -46,10 +46,15 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the library built from csrc/<name> lives (it may not yet)."""
-    with open(os.path.join(CSRC, name), "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{LIBS[name]}_{digest}.so")
+    """Where the library built from csrc/<name> lives (it may not yet):
+    named after a hash of the source and of every csrc/*.cuh header it
+    can include, so an edited header rebuilds too."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name, *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read() + b"\0")
+    return os.path.join(BUILD_DIR, f"lib{LIBS[name]}_{h.hexdigest()[:16]}.so")
 
 
 def build_all(names=tuple(LIBS)) -> dict[str, tuple[str, str]]:

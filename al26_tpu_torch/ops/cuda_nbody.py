@@ -17,8 +17,8 @@ shaped):
 
 The source is compiled by nvcc for sm_90a at first use into
 `al26_tpu_torch/_build/` (ops.cuda_build: a shared library named after a
-hash of the source, so an edited .cu rebuilds) and bound with ctypes. A
-missing nvcc or a failed build raises; nothing falls back.
+hash of the source and its headers, so an edit rebuilds) and bound with
+ctypes. A missing nvcc or a failed build raises; nothing falls back.
 
 Every wrapper checks device, dtype (f32), shape and contiguity. On a CUDA
 tensor it launches its kernel (or raises); on a CPU tensor it runs the
@@ -536,34 +536,54 @@ def nbody_rows(pos_rows, vel_rows, row_ids, pos, vel, mass, eps2: float,
                                 group_size, use_mxu)
     if device.type != "cuda":
         raise ValueError(f"nbody_rows runs on cuda or cpu, not {device}")
-    acc = torch.empty((b, 3), dtype=torch.float32, device=device)
-    jerk = torch.empty_like(acc)
-    pot = torch.empty((b,), dtype=torch.float32, device=device)
-    if b == 0:
-        return acc, jerk, pot
-    if n == 0:
-        return acc.zero_(), jerk.zero_(), pot.zero_()
+    if b == 0 or n == 0:
+        acc = torch.zeros((b, 3), dtype=torch.float32, device=device)
+        return acc, torch.zeros_like(acc), torch.zeros_like(acc[:, 0])
     if use_mxu:
         launch, out = rows_mma_launcher(pos_rows, vel_rows, row_ids, pos,
                                         vel, mass, eps2, g, with_jerk,
                                         with_pot, pot_eps2)
         _count(launch(), "nbody_rows_mma")
         return out
-    lib = load()
+    launch, out = rows_launcher(pos_rows, vel_rows, row_ids, pos, vel, mass,
+                                eps2, g, with_jerk, with_pot, pot_eps2,
+                                group_size)
+    _count(launch(), "nbody_rows_group" if group_size > 0 else "nbody_rows")
+    return out
+
+
+def rows_launcher(pos_rows, vel_rows, row_ids, pos, vel, mass, eps2: float,
+                  g: float = G_INTERNAL, with_jerk: bool = True,
+                  with_pot: bool = True, pot_eps2: float | None = None,
+                  group_size: int = 0):
+    """One launch of kernel 1's FMA body (group_size > 0: kernel 1b, the
+    group windows) on checked CUDA tensors (B, N > 0): outputs, the split
+    partials and the ctypes arguments made here, once. Returns
+    (launch, (acc, jerk, pot)): launch() issues the sweep and its ordered
+    split sum on the current stream through one ctypes call and returns
+    the CUDA error. nbody_rows calls it once; a timer may call launch()
+    many times, rewriting the same outputs."""
+    b, n, device = pos_rows.shape[0], pos.shape[0], pos.device
+    acc = torch.empty((b, 3), dtype=torch.float32, device=device)
+    jerk = torch.empty_like(acc)
+    pot = torch.empty((b,), dtype=torch.float32, device=device)
     splits = _splits(b, n, group_size)
     partial = torch.empty((splits, b, 7), dtype=torch.float32, device=device)
+    fn = load().nbody_rows_launch
     with torch.cuda.device(device):
-        err = lib.nbody_rows_launch(
-            pos_rows.data_ptr(), vel_rows.data_ptr(), row_ids.data_ptr(),
-            b, pos.data_ptr(), vel.data_ptr(), mass.data_ptr(), n,
-            float(eps2), float(0.0 if pot_eps2 is None else pot_eps2),
-            float(g), int(with_jerk), int(with_pot),
-            int(pot_eps2 is not None), group_size,
-            partial.data_ptr(), splits,
-            acc.data_ptr(), jerk.data_ptr(), pot.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    _count(err, "nbody_rows_group" if group_size > 0 else "nbody_rows")
-    return acc, jerk, pot
+        stream = torch.cuda.current_stream(device).cuda_stream
+    args = (pos_rows.data_ptr(), vel_rows.data_ptr(), row_ids.data_ptr(), b,
+            pos.data_ptr(), vel.data_ptr(), mass.data_ptr(), n, float(eps2),
+            float(0.0 if pot_eps2 is None else pot_eps2), float(g),
+            int(with_jerk), int(with_pot), int(pot_eps2 is not None),
+            max(int(group_size), 0), partial.data_ptr(), splits,
+            acc.data_ptr(), jerk.data_ptr(), pot.data_ptr(), stream)
+
+    def launch(_keep=(pos_rows, vel_rows, row_ids, pos, vel, mass,
+                      partial, acc, jerk, pot)):
+        return fn(*args)
+
+    return launch, (acc, jerk, pot)
 
 
 def nbody_predcols(pos_rows, vel_rows, row_ids, pos0, vel0, a0, j0, mass,

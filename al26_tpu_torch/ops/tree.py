@@ -26,9 +26,11 @@ the JAX package's:
      included) are resolved by exact pair sums over ONE flat target-major
      pair list padded to near_budget(kavg, B) (pack_pair_list). On a CUDA
      device in f32 that is the hand-written kernel of ops.cuda_tree
-     (csrc/tree.cu); elsewhere its plain version. Work scales with the
-     MEAN partner count; partner counts are heavy-tailed on fractal ICs
-     (N = 4e5, theta = 0.75: mean 171 of 2048 blocks, max 1515). Pairs
+     (csrc/tree.cu); elsewhere its plain version. Both sweep the list
+     through cuda_tree.near_items: source blocks of padding slots only
+     (which pair with every other padding block, 61 % of the list at
+     N = 409600) are left out, and each target's run is cut into items of
+     bounded length (partner counts are heavy-tailed on fractal ICs). Pairs
      past the budget are dropped and `overflow` is set; the sweep
      factories then poison the forces with NaN on the device.
 

@@ -36,8 +36,12 @@ The Barnes-Hut tier (force_impl="tree", fractal ICs), run in this order:
               tree and pair list of a fractal cluster of N = 131072 (theta
               0.75, leaf 256, the auto-sized kavg), with jerk and the raw
               potential, held to 1e-5 of the max; the overflow flag at
-              kavg = 1; the same bits on a repeat; times beside the f32
-              plain version's, and the partner-run lengths;
+              kavg = 1; the same bits on a repeat; its device time per
+              launch (events around 20 back-to-back launches of the bare
+              launcher) and a wrapper call's, beside the bound from the
+              needed pairs and the f32 plain version's time; the pair
+              classes, the padding pairs dropped, the run lengths, and
+              the swept pairs counted on the card and on the CPU;
   4b. tree accuracy  the tree's acceleration (kernel path) against the
               exact kernel-1 sweep at N = 65536 fractal, theta 0.75:
               median <= 1e-2 and p99 <= 5e-2 of |da|/|a|, no overflow;
@@ -52,7 +56,8 @@ The Barnes-Hut tier (force_impl="tree", fractal ICs), run in this order:
               before init_cluster (kernel 1: the fractal virial sum) to
               after the last step; then each kernel against its f64 plain
               version at the shapes this path gives it (kernel 3 on the
-              live tree's longest partner runs, kernel 2 at K = k_fast
+              live tree, as in phase 3b, with its device time and bound
+              there, which the kernels line carries; kernel 2 at K = k_fast
               against all N columns, kernel 1's eps2 = 1e-30 virial sweep
               on a row subset; bars as in phases 3 and 3b), a breakdown of
               one tree sweep, and the physics invariants; then
@@ -67,8 +72,10 @@ The flattened ensembles (parallel.ensemble, kernel 1's group windows):
               below, B x N = 64 x 1000 and 8 x 10240: the full sweep with
               jerk and the raw potential and the acceleration-only sweep
               (bar 1e-5 of the max), 512 scattered rows spanning several
-              groups (bar 2e-5); the same bits on a repeat; times beside
-              the f32 plain version's;
+              groups (bar 2e-5); the same bits on a repeat; each mode's
+              device time per launch (events around 50 back-to-back
+              launches of the bare launcher) beside its bound, and the
+              f32 plain version's time;
   4d. ensemble parity  a B = 4, n = 256 ensemble, 3 flat steps: the card
               (group windows, force cache) against the CPU (per-realization
               dense forces) from the same initial bits, the bars of phase 4;
@@ -255,6 +262,61 @@ def _rows_bytes(b: int, n: int, with_jerk: bool, with_pot: bool) -> int:
     per_col = 12 + 4 + (12 if with_jerk else 0)
     out = 12 + (12 if with_jerk else 0) + (4 if with_pot else 0)
     return b * (per_row + out) + n * per_col
+
+
+def _near_stats(p2p, n_true: int, leaf: int) -> dict:
+    """Kernel 3's work at one tree's MAC-failing block pairs `p2p` [B, B]:
+    the pairs by class (a block is padding when it holds no real star:
+    s * leaf >= n_true), the per-target run lengths of the pairs the
+    kernel sweeps (every source block that holds a real star: `kept`),
+    and the pair interactions they need: leaf x the real columns of each
+    kept source block, less the self pairs. `needed` is what the bound
+    counts; `listed_pairs` x leaf^2 is what a sweep of every listed pair as
+    a full tile computes."""
+    import torch
+
+    b = p2p.shape[0]
+    real = -(-n_true // leaf)
+    p = p2p.to(torch.int64)
+    cols = (n_true - torch.arange(b, device=p2p.device) * leaf).clamp(0, leaf)
+    kept = p[:, :real]
+    self_pairs = int((torch.diagonal(p)[:real] * cols[:real]).sum())
+    needed = leaf * int((kept * cols[None, :real]).sum()) - self_pairs
+    runs = kept.sum(1).double()
+    real_runs = p[:real, :real].sum(1).double()
+    q = torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64,
+                     device=p2p.device)
+
+    def dist(r):
+        qs = torch.quantile(r, q)
+        return {"mean": float(r.mean()), "p50": float(qs[0]),
+                "p90": float(qs[1]), "p99": float(qs[2]),
+                "max": int(r.max()), "min": int(r.min())}
+
+    classes = {"real_real": int(p[:real, :real].sum()),
+               "real_target_pad_source": int(p[:real, real:].sum()),
+               "pad_target_real_source": int(p[real:, :real].sum()),
+               "pad_pad": int(p[real:, real:].sum())}
+    listed = int(p.sum())
+    return {"blocks": b, "real_blocks": real, "listed_pairs": listed,
+            "classes": classes, "kept_pairs": int(kept.sum()),
+            "dropped_pairs": listed - int(kept.sum()),
+            "padding_share": (listed - int(kept.sum())) / max(listed, 1),
+            "needed_interactions": needed,
+            "listed_interactions": listed * leaf * leaf,
+            "run_length": dist(runs), "real_target_run_length":
+            dist(real_runs)}
+
+
+def _near_bound(stats: dict, leaf: int) -> dict:
+    """_bound of kernel 3 in the tree sweep's mode (jerk and the raw
+    potential: two rsqrt a pair) from _near_stats: the needed pair
+    interactions; the sorted, padded slots in (positions, masses,
+    velocities: 28 bytes), acc / jerk / pot out (28), and one int32
+    source block a kept pair."""
+    return _bound(stats["needed_interactions"], True,
+                  stats["blocks"] * leaf * 56 + 4 * stats["kept_pairs"],
+                  rsqrt=2)
 
 
 def _median_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -860,12 +922,61 @@ def _launches() -> dict:
     return {**cuda_nbody.LAUNCHES, **cuda_tree.LAUNCHES}
 
 
+def _near_check(tree, p2p, n: int, cfg, reps: int = 20) -> dict:
+    """Kernel 3 (jerk and the raw potential, the tree sweep's mode) on one
+    tree's MAC-failing pairs: against its f64 plain version, a repeat for
+    the same bits, its device time per launch (_device_ms around `reps`
+    back-to-back launches of the bare launcher: the work items and the
+    ordered sum), a wrapper call's device time (the item table's torch
+    work and the launch), one f32 plain call's time, the pair classes,
+    runs and bound (_near_stats, _near_bound), and the swept pairs of the
+    item table on the card and on a CPU copy of the mask."""
+    import torch
+
+    from al26_tpu_torch.ops import cuda_tree as ct
+
+    leaf, kavg, eps2 = cfg.tree_leaf, cfg.tree_kavg, cfg.eps2
+    kw = dict(leaf=leaf, kavg=kavg, pot_eps2=1e-30, with_jerk=True)
+    launch, out = ct.near_field_launcher(tree.pos_s, tree.mass_s, p2p, n,
+                                         eps2, vel_s=tree.vel_s, **kw)
+    err = launch()
+    torch.cuda.synchronize()
+    if err:
+        _fail(f"near_field launch failed: cudaError {err}")
+    got = [x.clone() for x in out[:3]]
+    launch()
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, out[:3]))
+    d = lambda t: t.double()
+    ref = ct.near_field_plain(d(tree.pos_s), d(tree.mass_s), p2p, n, eps2,
+                              vel_s=d(tree.vel_s), **kw)
+    stats = _near_stats(p2p, n, leaf)
+    kept_card = int(ct.near_items(p2p, kavg, n, leaf).kept.sum())
+    kept_cpu = int(ct.near_items(p2p.cpu(), kavg, n, leaf).kept.sum())
+    wrapper = lambda: ct.near_field(tree.pos_s, tree.mass_s, p2p, n, eps2,
+                                    vel_s=tree.vel_s, **kw)
+    plain = lambda: ct.near_field_plain(tree.pos_s, tree.mass_s, p2p, n,
+                                        eps2, vel_s=tree.vel_s, **kw)
+    ms = _device_ms(launch, reps=reps)
+    return {"n": n, "leaf": leaf, "kavg": kavg, "eps2": eps2,
+            "item_pairs": ct.ITEM_PAIRS,
+            "rel_err": {k: _rel_err(g, r) for k, g, r in
+                        zip(("acc", "jerk", "pot"), got, ref[:3])},
+            "max_abs_err": max(_abs_err(g, r) for g, r in zip(got, ref[:3])),
+            "tol": KERNEL_TOL, "overflow": bool(out[3]),
+            "repeat_same_bits": same_bits, "ms": ms,
+            "wrapper_ms": _device_ms(wrapper, reps=reps),
+            "plain_f32_ms": _median_ms(plain, 1, warmup=0),
+            "kept_pairs_card": kept_card, "kept_pairs_cpu": kept_cpu,
+            "gpairs_per_s": stats["needed_interactions"] / (ms * 1e6),
+            **stats, **_near_bound(stats, leaf)}
+
+
 def phase_near_field():
-    """Kernel 3 against its f64 plain version on a fractal cluster of
-    N_NEAR stars (the tree and pair list the tree slice would build), the
-    overflow flag, times beside the f32 plain version's, and the
-    partner-run lengths (one CTA per target block is bounded by the
-    longest run)."""
+    """Kernel 3 on a fractal cluster of N_NEAR stars (the tree and pair
+    list the tree slice would build): _near_check and the overflow flag
+    at kavg = 1; returns the kernels-line record (the slice's shape fills
+    its times and bound, phase 5b)."""
     import torch
 
     from al26_tpu_torch import SimConfig
@@ -878,59 +989,29 @@ def phase_near_field():
                     force_impl="tree")
     state, _, cfg = init_cluster(cfg, device=dev)
     c = state.cluster
-    leaf, kavg, eps2 = cfg.tree_leaf, cfg.tree_kavg, cfg.eps2
-    tree = tt.build_block_tree(c.pos, c.mass, leaf, c.vel)
+    tree = tt.build_block_tree(c.pos, c.mass, cfg.tree_leaf, c.vel)
     _, p2p = tt.mac_masks(tree, cfg.tree_theta)
-    kw = dict(leaf=leaf, pot_eps2=1e-30, with_jerk=True)
-
-    def kernel(k=kavg):
-        return ct.near_field(tree.pos_s, tree.mass_s, p2p, N_NEAR, eps2,
-                             kavg=k, vel_s=tree.vel_s, **kw)
-
-    got = kernel()
-    d = lambda t: t.double()
-    ref = ct.near_field_plain(d(tree.pos_s), d(tree.mass_s), p2p, N_NEAR,
-                              eps2, kavg=kavg, vel_s=d(tree.vel_s), **kw)
-    errs = {k: _rel_err(g, r) for k, g, r in zip(("acc", "jerk", "pot"),
-                                                  got[:3], ref[:3])}
-    abs_err = max(_abs_err(g, r) for g, r in zip(got[:3], ref[:3]))
-    overflow = bool(got[3])
-    overflow_kavg1 = bool(kernel(1)[3])
-    again = kernel()
-    same_bits = all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]))
-    _, _, count, _ = ct.pair_runs(p2p, kavg)
-    runs = count.double()
-    q = torch.quantile(runs, torch.tensor([0.5, 0.9, 0.99], device=dev,
-                                          dtype=torch.float64))
-    n_pairs = int(count.sum())
-    t_k = _median_ms(kernel, 10)
-    t_runs = _median_ms(lambda: ct.pair_runs(p2p, kavg), 10)
-    t_p = _median_ms(lambda: ct.near_field_plain(
-        tree.pos_s, tree.mass_s, p2p, N_NEAR, eps2, kavg=kavg,
-        vel_s=tree.vel_s, **kw), 3, warmup=1)
-    _line("kernel near_field", n=N_NEAR, leaf=leaf, blocks=p2p.shape[0],
-          kavg=kavg, eps2=eps2, rel_err=errs, tol=KERNEL_TOL,
-          max_abs_err=abs_err, overflow=overflow,
-          overflow_at_kavg1=overflow_kavg1, repeat_same_bits=same_bits,
-          ms=t_k, pair_list_ms=t_runs, plain_f32_ms=t_p,
-          pairs=n_pairs, gpairs_per_s=n_pairs * leaf * leaf / (t_k * 1e6),
-          run_length={"mean": float(runs.mean()), "p50": float(q[0]),
-                      "p90": float(q[1]), "p99": float(q[2]),
-                      "max": int(count.max()), "min": int(count.min())})
-    bad = {k: v for k, v in errs.items() if not v < KERNEL_TOL}
-    if bad or overflow or not overflow_kavg1 or not same_bits:
-        _fail(f"near_field: errors {bad}, overflow {overflow}, overflow at "
-              f"kavg=1 {overflow_kavg1}, repeat same bits {same_bits}")
-    # the pairs the MAC asks for (each leaf pair L x L, less the N self
-    # pairs); the sorted stars in (28 bytes), acc / jerk / pot out (28),
-    # the packed pair list (two int32 a pair)
+    rec = _near_check(tree, p2p, N_NEAR, cfg)
+    overflow_kavg1 = bool(ct.near_field(
+        tree.pos_s, tree.mass_s, p2p, N_NEAR, cfg.eps2, leaf=cfg.tree_leaf,
+        kavg=1, pot_eps2=1e-30, vel_s=tree.vel_s, with_jerk=True)[3])
+    _line("kernel near_field", **rec, overflow_at_kavg1=overflow_kavg1)
+    bad = {k: v for k, v in rec["rel_err"].items() if not v < KERNEL_TOL}
+    if (bad or rec["overflow"] or not overflow_kavg1
+            or not rec["repeat_same_bits"]
+            or rec["kept_pairs_card"] != rec["kept_pairs"]
+            or rec["kept_pairs_cpu"] != rec["kept_pairs"]):
+        _fail(f"near_field: errors {bad}, overflow {rec['overflow']}, "
+              f"overflow at kavg=1 {overflow_kavg1}, repeat same bits "
+              f"{rec['repeat_same_bits']}, kept pairs card / cpu / mask "
+              f"{rec['kept_pairs_card']} / {rec['kept_pairs_cpu']} / "
+              f"{rec['kept_pairs']}")
     return {"name": "near_field", "route": "cuda",
             "source": "al26_tpu_torch/csrc/tree.cu",
             "replaces": "al26_tpu/ops/pallas_tree.py:63",
-            "launches": 0, "max_abs_err": abs_err, "ms": t_k,
-            "plain_ms": t_p,
-            **_bound(n_pairs * leaf * leaf - N_NEAR, True,
-                     56 * N_NEAR + 8 * n_pairs, rsqrt=2),
+            "launches": 0, "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_f32_ms"],
+            **{k: rec[k] for k in ("bound_ms", "bound_by", "bound_pipe")},
             "library_ms": None}
 
 
@@ -1127,10 +1208,9 @@ def _main_path_kernel_checks(state, cache, cfg) -> dict:
     tree slice gives it, on the slice's state after its last step:
 
       near_field      the state's tree and pair list (theta, leaf,
-                      tree_kavg; jerk and the raw potential), on the 16
-                      target blocks with the longest partner runs and 16
-                      random others (the plain sweep sees only their
-                      pairs);
+                      tree_kavg; jerk and the raw potential), every
+                      target block (_near_check: also its device time,
+                      pair classes, runs and bound at this shape);
       nbody_predcols  K = k_fast rows (the largest |a|) against all N
                       columns predicted from the force cache to dt / 2,
                       the FMA body and the matmul one the path runs;
@@ -1142,7 +1222,6 @@ def _main_path_kernel_checks(state, cache, cfg) -> dict:
     import torch
 
     from al26_tpu_torch.ops import cuda_nbody as cn
-    from al26_tpu_torch.ops import cuda_tree as ct
     from al26_tpu_torch.ops import tree as tt
 
     c = state.cluster
@@ -1156,27 +1235,9 @@ def _main_path_kernel_checks(state, cache, cfg) -> dict:
                 "max_abs_err": max(_abs_err(g, r) for g, r in zip(got, ref)),
                 "tol": tol, **extra}
 
-    out = {}
     tree = tt.build_block_tree(c.pos, c.mass, cfg.tree_leaf, c.vel)
     _, p2p = tt.mac_masks(tree, cfg.tree_theta)
-    kw = dict(leaf=cfg.tree_leaf, kavg=cfg.tree_kavg, pot_eps2=1e-30,
-              with_jerk=True)
-    got = ct.near_field(tree.pos_s, tree.mass_s, p2p, n, cfg.eps2,
-                        vel_s=tree.vel_s, **kw)
-    runs = p2p.sum(1)
-    picked = torch.cat([torch.topk(runs, 16).indices, torch.as_tensor(
-        rng.choice(p2p.shape[0], 16, replace=False), device=dev)])
-    blocks = torch.unique(picked)
-    sub = torch.zeros_like(p2p)
-    sub[blocks] = p2p[blocks]
-    ref = ct.near_field_plain(d(tree.pos_s), d(tree.mass_s), sub, n,
-                              cfg.eps2, vel_s=d(tree.vel_s), **kw)
-    out["near_field"] = record(
-        ("acc", "jerk", "pot"), [g[blocks] for g in got[:3]],
-        [r[blocks] for r in ref[:3]], KERNEL_TOL, blocks=len(blocks),
-        pairs=int(sub.sum()), overflow=bool(got[3]),
-        run_length={"mean": float(runs.double().mean()),
-                    "max": int(runs.max()), "min": int(runs.min())})
+    out = {"near_field": _near_check(tree, p2p, n, cfg)}
 
     a0, j0 = cache[0], cache[1]
     pf, vf, sel, tau = _fast_rows(c, a0, j0, cfg)
@@ -1289,8 +1350,12 @@ def phase_tree_slice():
             v < rec["tol"] for v in rec["rel_err"].values())
     checks["predcols_mma_repeat_same_bits"] = kernel_checks[
         "nbody_predcols_mma"]["repeat_same_bits"]
-    checks["near_field_no_overflow"] = not kernel_checks["near_field"][
-        "overflow"]
+    near = kernel_checks["near_field"]
+    checks["near_field_no_overflow"] = not near["overflow"]
+    checks["near_field_repeat_same_bits"] = near["repeat_same_bits"]
+    checks["near_field_kept_pairs_match_cpu"] = (
+        near["kept_pairs_card"] == near["kept_pairs_cpu"]
+        == near["kept_pairs"])
     breakdown = _sweep_breakdown(state, cfg)
     _line("tree slice", n=N_TREE, integrator=cfg.integrator,
           k_fast=cfg.k_fast, theta=cfg.tree_theta, leaf=cfg.tree_leaf,
@@ -1298,6 +1363,7 @@ def phase_tree_slice():
           s_per_myr=wall / (steps * cfg.dt),
           wall_per_step_ms=1e3 * wall / steps,
           substeps_per_step=step_launches["nbody_predcols_mma"] / steps,
+          near_field_per_step=step_launches["near_field"] / steps,
           launches=launches, init_launches=init_launches,
           step_launches=step_launches, peak_mem_gb=peak_gb, sweep=breakdown,
           kernels_vs_plain=kernel_checks,
@@ -1343,8 +1409,12 @@ def phase_group_kernel():
     """The windowed kernel 1 against its f64 plain grouped version on the
     initial states of both ensembles: full sweeps (jerk + raw potential;
     acceleration only; acceleration + raw potential, the leapfrog path's
-    closing sweep), 512 scattered rows across the groups; returns the
-    kernels-line record (launches filled from phase 5c)."""
+    closing sweep), 512 scattered rows across the groups; the same bits on
+    a repeat; each mode's device time per launch (_device_ms around 50
+    back-to-back launches of the bare launcher, cuda_nbody.rows_launcher:
+    the sweep and its ordered split sum) beside its bound from the
+    useful pairs; returns the kernels-line record (launches filled from
+    phase 5c)."""
     import numpy as np
     import torch
 
@@ -1381,9 +1451,9 @@ def phase_group_kernel():
             for i in keep:
                 errs[f"{mode}_{names[i]}"] = _rel_err(got[i], ref_full[i])
                 abs_err = max(abs_err, _abs_err(got[i], ref_full[i]))
-            times[mode + "_ms"] = _median_ms(
-                lambda: cn.nbody_rows(pos, vel, ids, pos, vel, mass, eps2,
-                                      **mk, **kw), 10)
+            launch, _ = cn.rows_launcher(pos, vel, ids, pos, vel, mass, eps2,
+                                         **mk, **kw)
+            times[mode + "_ms"] = _device_ms(launch)
         # scattered rows across the groups (hermite4_block's fast rows)
         sel = torch.as_tensor(np.sort(rng.choice(total, 512, replace=False)),
                               dtype=torch.int32, device=dev)
@@ -1397,15 +1467,22 @@ def phase_group_kernel():
                      "rows512_jerk": _rel_err(got[1], ref[1])}
         abs_err = max(abs_err, _abs_err(got[0], ref[0]),
                       _abs_err(got[1], ref[1]))
-        times["rows512_ms"] = _median_ms(
-            lambda: cn.nbody_rows(rp, rv, sel, pos, vel, mass, eps2,
-                                  with_pot=False, **kw), 20)
+        launch, _ = cn.rows_launcher(rp, rv, sel, pos, vel, mass, eps2,
+                                     with_pot=False, **kw)
+        times["rows512_ms"] = _device_ms(launch)
         mk = modes["acc_pot"]
         t_plain = _median_ms(lambda: cn.nbody_rows_plain(
             pos, vel, ids, pos, vel, mass, eps2, **mk, **kw), 3, warmup=1)
         pairs = b * n * (n - 1)
         bound = _bound(pairs, False, _rows_bytes(total, total, False, True),
                        rsqrt=2)
+        bounds = {"jerk_pot": _bound(pairs, True, _rows_bytes(
+                      total, total, True, True), rsqrt=2)["bound_ms"],
+                  "acc": _bound(pairs, False, _rows_bytes(
+                      total, total, False, False))["bound_ms"],
+                  "acc_pot": bound["bound_ms"],
+                  "rows512": _bound(512 * (n - 1), True, _rows_bytes(
+                      512, total, True, False))["bound_ms"]}
         _line("kernel nbody_rows_group", realizations=b, n=n, eps2=eps2,
               groups_spanned_by_rows=int(torch.unique(
                   sel.long() // n).numel()),
@@ -1413,7 +1490,7 @@ def phase_group_kernel():
               tol={"full": KERNEL_TOL, "rows": PREDCOLS_TOL},
               max_abs_err=abs_err, **times, acc_pot_plain_f32_ms=t_plain,
               useful_gpairs_per_s=pairs / (times["acc_pot_ms"] * 1e6),
-              **bound)
+              bound_ms_by_mode=bounds, **bound)
         bad = {k: v for k, v in errs.items() if not v < KERNEL_TOL}
         bad.update({k: v for k, v in errs_rows.items()
                     if not v < PREDCOLS_TOL})
@@ -1549,7 +1626,9 @@ def phase_ensemble_slice(b: int, n: int, steps: int, chunks) -> dict:
           init_s=t_init, wall_s=wall, s_per_myr=wall / (steps * cfg.dt),
           step_ms=step_ms, physics_ms=physics_ms,
           advance_and_cache_ms=step_ms - physics_ms,
-          launches=launches, peak_mem_gb=peak_gb,
+          launches=launches,
+          group_launches_per_step=launches["nbody_rows_group"] / steps,
+          peak_mem_gb=peak_gb,
           final_sweep_rel_err=final_err,
           wind_total=float(c.slr[:, :, :, 0:2].sum()), checks=checks)
     if not all(checks.values()):
@@ -1804,6 +1883,12 @@ def main() -> int:
         rec["launches"] = tree[rec["name"]]
         rec["max_abs_err"] = max(rec["max_abs_err"],
                                  checked[rec["name"]]["max_abs_err"])
+        if rec["name"] == "near_field":
+            # the times and bound at the tree slice's own shape
+            near = checked["near_field"]
+            rec.update({"plain_ms": near["plain_f32_ms"],
+                        **{k: near[k] for k in ("ms", "bound_ms",
+                                                "bound_by", "bound_pipe")}})
     group["launches"] = ensembles[0]["nbody_rows_group"]
     records.append(group)
     # the matmul bodies: launches from the driver at N_KERNEL (phase 6b),

@@ -35,8 +35,9 @@ VARIANTS = {
     "flat_reduction": [("constexpr int RED_GROUP = 16;",
                         "constexpr int RED_GROUP = 1 << 20;")],
     # the SFU's subnormal fix-up back (rsqrtf)
-    "rsqrtf": [('asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));',
-                'y = rsqrtf(x);')],
+    "rsqrtf": [("using pair_fma::rsqrt_ftz;",
+                "__device__ __forceinline__ float rsqrt_ftz(float x) "
+                "{ return rsqrtf(x); }")],
     # the self-pair mask in every tile
     "mask_every_tile": [("else if (id_lo < t0 + TJ && id_hi >= t0)",
                          "else if (true)")],
@@ -98,7 +99,8 @@ def build(names, out_dir):
             fh.write(src)
         lib = os.path.join(out_dir, f"libnbody_{name}.so")
         procs[name] = (lib, subprocess.Popen(
-            [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib, cu],
+            [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+             cuda_build.CSRC, "-o", lib, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
     for name, (lib, proc) in procs.items():

@@ -517,6 +517,35 @@ def test_build_helper_names_reuses_and_needs_nvcc(tmp_path, monkeypatch):
         cuda_build.build_all()                    # nbody.cu is missing
 
 
+def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
+    """ops.cuda_build names each library after its source AND the shared
+    headers (csrc/*.cuh, the FMA loop both sources include): an edited
+    header renames both libraries, so a stale one is never reused; an
+    edited source renames only its own."""
+    import shutil
+
+    from al26_tpu_torch.ops import cuda_build
+
+    real = {name: cuda_build.library_path(name) for name in cuda_build.LIBS}
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC", str(csrc))
+    copied = {name: cuda_build.library_path(name) for name in cuda_build.LIBS}
+    assert copied == real                     # the content names them
+    for name in cuda_build.LIBS:
+        assert '#include "pair_fma.cuh"' in (csrc / name).read_text()
+    header = csrc / "pair_fma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = {name: cuda_build.library_path(name)
+              for name in cuda_build.LIBS}
+    assert all(edited[k] != copied[k] for k in copied)
+    tree = csrc / "tree.cu"
+    tree.write_text(tree.read_text() + "\n")
+    again = {name: cuda_build.library_path(name) for name in cuda_build.LIBS}
+    assert again["tree.cu"] != edited["tree.cu"]
+    assert again["nbody.cu"] == edited["nbody.cu"]
+
+
 @pytest.mark.gpu
 def test_fractal_virial_sum_follows_dtype_on_card():
     """The fractal ICs' virial sum on a card: kernel 1 in f32 (one launch,

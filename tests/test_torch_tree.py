@@ -235,20 +235,116 @@ def test_near_field_plain_matches_jax(jx, with_jerk, pot_eps2):
 
 
 def test_pair_runs_cover_the_pair_list():
+    """Each target block's run of the packed list, as the item table reads
+    it (from its first item's first pair), holds the target's listed
+    source blocks in order, and its swept head is exactly those that hold
+    a real star."""
     rng = np.random.default_rng(31)
     p2p = T(rng.uniform(size=(16, 16)) < 0.3) | torch.eye(16, dtype=bool)
+    leaf, n_true = 8, 101                    # blocks 13-15 are padding
     for kavg in (16, 3):
-        src, start, count, ovf = cuda_tree.pair_runs(p2p, kavg)
+        it = cuda_tree.near_items(p2p, kavg, n_true, leaf)
         ti, sj, ok, ovf2 = tt.pack_pair_list(p2p, kavg)
-        assert bool(ovf) == bool(ovf2) == (int(p2p.sum()) > 16 * kavg)
-        assert int(count.sum()) == int(ok.sum())
+        assert bool(it.overflow) == bool(ovf2) == (int(p2p.sum()) > 16 * kavg)
         for t in range(16):
-            run = src[int(start[t]):int(start[t]) + int(count[t])]
+            start = int(it.item[1, int(it.tinfo[0, t])])
             want = sj[ok & (ti == t)]
+            run = it.src[start:start + len(want)]
             np.testing.assert_array_equal(run.numpy(), want.numpy())
-            if not bool(ovf):
+            real = want[want.long() * leaf < n_true]
+            np.testing.assert_array_equal(
+                run[:int(it.kept[t])].numpy(), real.numpy())
+            if not bool(it.overflow):
                 np.testing.assert_array_equal(
                     run.numpy(), torch.nonzero(p2p[t])[:, 0].numpy())
+
+
+def _padded_tree(dtype=torch.float64):
+    """A clumpy n = 1700 tree at leaf 64: 27 blocks hold stars (the last
+    one straddles n), 5 of the 32 are padding; its MAC and a budget that
+    fits."""
+    rng = np.random.default_rng(29)
+    n, leaf = 1700, 64
+    pos, vel, mass = (T(a, dtype=dtype) for a in _clumpy(rng, n))
+    tree = tt.build_block_tree(pos, mass, leaf, vel)
+    _, p2p = tt.mac_masks(tree, 0.75)
+    kavg = int(p2p.sum(1).double().mean()) + 4
+    return tree, p2p, n, leaf, kavg
+
+
+@pytest.mark.parametrize("item_pairs,kavg", [(1, None), (3, None),
+                                             (16, None), (3, 2)])
+def test_near_items_cover_kept_pairs_once(item_pairs, kavg):
+    """The work items take every listed pair whose source block holds a
+    real star exactly once and no all-padding source; each holds at most
+    `item_pairs` pairs, each target owns a run of consecutive items (at
+    least one), and the table fits its static bound with the surplus
+    items past the real ones (kavg = 2 overflows: the listed pairs
+    only)."""
+    tree, p2p, n, leaf, fit = _padded_tree()
+    kavg = kavg or fit
+    b = p2p.shape[0]
+    real = -(-n // leaf)
+    assert (b, real) == (32, 27)
+    it = cuda_tree.near_items(p2p, kavg, n, leaf, item_pairs)
+    ti, sj, ok, ovf = tt.pack_pair_list(p2p, kavg)
+    assert bool(ovf) == (kavg == 2)
+    budget = ti.shape[0]
+    n_items = it.item.shape[1]
+    assert n_items == cuda_tree.item_bound(b, budget, item_pairs)
+    first, chunks = (x.long() for x in it.tinfo)
+    n_real = int(chunks.sum())
+    assert n_real <= n_items and bool((chunks >= 1).all())
+    owner, p0, npairs = (x.long() for x in it.item)
+    np.testing.assert_array_equal(
+        owner[:n_real].numpy(),
+        torch.repeat_interleave(torch.arange(b), chunks).numpy())
+    np.testing.assert_array_equal(first.numpy(),
+                                  (torch.cumsum(chunks, 0) - chunks).numpy())
+    assert bool((owner[n_real:] == b).all()) and not npairs[n_real:].any()
+    assert bool((npairs <= item_pairs).all())
+    got = []
+    for i in range(n_real):
+        for p in range(int(p0[i]), int(p0[i] + npairs[i])):
+            got.append((int(owner[i]), int(it.src[p])))
+    listed = [(int(t), int(s)) for t, s, k in zip(ti, sj, ok) if k]
+    want = [(t, s) for t, s in listed if s < real]
+    assert sorted(got) == sorted(want) and len(set(got)) == len(got)
+    assert all(s < real for _, s in got)
+    assert int(it.kept.sum()) == len(want)
+    if kavg == fit:
+        assert len(listed) == int(p2p.sum())
+        assert len(listed) - len(want) > 0        # padding pairs dropped
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dropping_padding_sources_changes_no_row(dtype):
+    """Every pair of the list whose source block holds only padding adds
+    exact zeros to every target row (padding rows included), so the sum
+    over the list in its order is the same, bit for bit, with or without
+    them; near_field_plain (through the items) agrees with it to
+    round-off."""
+    tree, p2p, n, leaf, kavg = _padded_tree(dtype=dtype)
+    ti, sj, ok, _ = tt.pack_pair_list(p2p, kavg)
+    ti, sj = ti[ok], sj[ok]
+    pad = sj.long() * leaf >= n
+    assert int(pad.sum()) > 0 and bool((ti.long() * leaf >= n).any())
+    kw = dict(eps2=1e-4, pot_eps2=1e-30, vel_s=tree.vel_s, with_jerk=True)
+    sums = cuda_tree.pair_sums(tree.pos_s, tree.mass_s, ti, sj, n, **kw)
+    assert not sums[pad].any()
+    b = p2p.shape[0]
+    full = torch.zeros((b, leaf, 7), dtype=dtype).index_add_(0, ti.long(),
+                                                             sums)
+    kept = torch.zeros((b, leaf, 7), dtype=dtype).index_add_(
+        0, ti[~pad].long(), sums[~pad])
+    np.testing.assert_array_equal(kept.numpy(), full.numpy())
+    acc, jerk, pot, ovf = cuda_tree.near_field_plain(
+        tree.pos_s, tree.mass_s, p2p, n, leaf=leaf, kavg=kavg, **kw)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert not bool(ovf)
+    assert _rel(acc, G_INTERNAL * full[..., 0:3]) < tol
+    assert _rel(jerk, G_INTERNAL * full[..., 3:6]) < tol
+    assert _rel(pot, G_INTERNAL * full[..., 6]) < tol
 
 
 @pytest.mark.parametrize("mac", ["geometric", "relative"])
@@ -384,22 +480,27 @@ def test_near_field_kernel_matches_plain_on_card(monkeypatch):
     """Kernel 3 against its f64 plain version on the card (1e-5 of the max,
     the bar of tests/test_tree.py's Pallas-vs-XLA near field), with
     padding, a leaf wider than a CTA's row pass (512), a narrow one (32),
-    jerk and the separate potential softening; the overflow flag; the same
-    bits on a repeat run; and the whole tree sweep through the kernel
-    against the same sweep through the plain near field."""
+    jerk and the separate potential softening, items of the wrapper's size
+    and of 2 pairs (targets with several items: the ordered sum); the
+    overflow flag; the same bits on a repeat run; and the whole tree sweep
+    through the kernel against the same sweep through the plain near
+    field."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
-    for n, leaf in ((900, 128), (5000, 512), (3000, 32)):
+    for n, leaf in ((900, 128), (5000, 512), (3000, 32), (1700, 64)):
         pos, vel, mass = (T(a, dtype=torch.float32, device=dev)
                           for a in _clumpy(rng, n))
         tree = tt.build_block_tree(pos, mass, leaf, vel)
         _, p2p = tt.mac_masks(tree, 0.75)
         kavg = int(p2p.sum(1).double().mean()) + 4
         d = lambda t: None if t is None else t.double()
-        for with_jerk in (False, True):
-            for pot_eps2 in (None, 1e-30):
+        for with_jerk, pot_eps2, items in ((False, None, 2), (False, 1e-30, 0),
+                                           (True, None, 0), (True, 1e-30, 2)):
+            with monkeypatch.context() as mp:
+                if items:
+                    mp.setattr(cuda_tree, "ITEM_PAIRS", items)
                 kw = dict(leaf=leaf, kavg=kavg, pot_eps2=pot_eps2,
                           with_jerk=with_jerk)
                 before = cuda_tree.LAUNCHES["near_field"]
