@@ -2,15 +2,18 @@
 // shared library with a plain C interface and bound with ctypes
 // (al26_tpu_torch/ops/cuda_nbody.py builds and loads it at first use).
 //
-// Two kernels, one pairwise loop (each also in a matmul form, below):
+// Two Pallas kernels, each with an FMA body and a matmul body:
 //
-//   nbody_rows     replaces al26_tpu/ops/pallas_nbody.py::_nbody_kernel
-//                  (its FMA `body`, not the matmul variant): for B target rows
-//                  against N source columns, with Plummer softening eps2,
+//   nbody_rows     replaces al26_tpu/ops/pallas_nbody.py::_nbody_kernel: for
+//                  B target rows against N source columns, with Plummer
+//                  softening eps2,
 //                    acc  = G sum_j m_j dx / r^3
 //                    jerk = G sum_j m_j [dv / r^3 - 3 (dx.dv) dx / r^5]
 //                    pot  = -G sum_j m_j / r   (optionally softened by a
 //                                               separate pot_eps2)
+//                  Its FMA `body` is kernel 1 (fma_sweep, KIND_ROWS), its
+//                  `group_size > 0` windows kernel 1b (KIND_GROUP), its
+//                  `body_mxu` kernel 1c (pair_sweep_mma).
 //   nbody_predcols replaces pallas_nbody.py::_nbody_predcols_kernel: acc and
 //                  jerk of K fast rows against N columns that are Hermite-
 //                  predicted to offset tau from the step-start state while
@@ -21,64 +24,114 @@
 //                  without reading it back to the host. The fast columns
 //                  are not overridden here; the caller adds the exact
 //                  source-linearity correction (integrators._fast_override_delta).
+//                  Its FMA body is kernel 2 (fma_sweep, KIND_PRED), its
+//                  `body_mxu` kernel 2c (pair_sweep_mma<..., PRED>).
 //
-// What bounds them: each pair costs about 50 flops with jerk (30 without)
-// and one rsqrt, against 28 bytes per source column that every row block
-// reads once from L2/HBM; so the sweep is bound by the FP32 issue rate and
-// the rsqrt (SFU) throughput, not by memory. The design keeps every row's
-// seven sums in registers (one thread per row), stages source columns
-// through shared memory in tiles of TJ as SoA float arrays (so the inner
-// loop reads broadcast shared-memory words), and applies the self-pair and
-// padding masks with a select, never by multiplying by 0 (0 * inf = NaN).
-// The f32 sums are taken per tile, then across tiles, then across column
-// splits, which keeps their round-off within the 1e-5 (of the max) bar of
-// the f64 result at the N of a large cluster; one running sum per row over
-// all N columns does not (2.5e-5 at N = 131072 on an H100).
+// One loop for every FMA body: kernels 1, 1b and 2 here and kernel 3 (the
+// tree's near field, csrc/tree.cu) sweep through pair_fma.cuh. One target
+// row per thread; source columns staged as packed float4 (x, y, z, m) and
+// (vx, vy, vz, -) in tiles of TJ = 256, double-buffered: tile i + 1 is
+// copied by cp.async while tile i is swept, one barrier a tile (kernel 2
+// copies tile i + 1's raw step-start words, then predicts them to tau into
+// the other buffer, as 2c does); 1 / sqrt is the SFU's rsqrt without
+// rsqrtf's subnormal fix-up; the self / range / group select runs only in
+// the tiles that can hold a masked pair. Kernels 1 and 2 decide that per
+// warp: a tile is masked when one of the warp's row ids falls in it
+// (__any_sync; the branch only has to be warp-uniform), so a contiguous
+// full sweep masks 1 tile in 128 at N = 32768 and a scattered 256-row
+// subset ~22 % of a warp's tiles. A split's ragged last tile sweeps only
+// its own columns. A padding row (id -1) keeps every column, as the plain
+// version defines it (cuda_nbody._pair_sums); masks are selects, never
+// products with 0 (0 * inf = NaN).
 //
-// Small row counts: a fast-group call has only 256-512 rows, so a grid of
-// row blocks alone would fill 2-4 of the 132 SMs. The grid's second
-// dimension therefore splits the columns into `splits` contiguous ranges;
-// each block writes its partial sums to scratch, and reduce_partials adds
-// them in split order, so the result does not depend on block scheduling.
+// What bounds them: a pair costs ~26 FP32 operations with the jerk (50
+// flops as the JAX package's cost estimates count them, 30 without) and one
+// rsqrt, two with a separately softened potential, against 28 bytes a
+// source column that each row block reads from L2. So kernels 1 and 2 are
+// bound by FP32 issue (kernel 1's full sweep at N = 32768 with jerk and the
+// raw potential 0.80 ms on an H100; its fractal virial sum at N = 409600,
+// acceleration and potential, ~75 ms; kernel 2 at K = 512 against
+// N = 409600 ~0.157 ms), and a potential softened apart adds the SFU's
+// second rsqrt (16 a clock an SM), close to the FP32 term.
 //
-// The squared distance d2 = dx^2 + dy^2 + dz^2 is formed once; r^2 = d2 +
-// eps2 for the forces and d2 + pot_eps2 for a separately softened
-// potential (the JAX form r2 - eps2 + pot_eps2 cancels in f32 when d2 is
-// much smaller than eps2).
+// Few rows: a fast group has 256-512 rows, 2-4 row blocks of TB = 128. The
+// grid's second dimension splits the columns into runs of whole tiles, at
+// least two a block where N allows, filling whole waves of the card's
+// resident blocks (cuda_nbody.fma_plan, split_plan's rule at the variant's
+// own occupancy), and each row may be swept by LANES = 1 or 4 column lanes
+// (TB x LANES threads a block; lane l sweeps columns [l W, (l + 1) W) of
+// each tile, W = TJ / LANES), so that 2 row blocks still keep 16 warps an
+// SM resident. The lanes' sums are added in lane order.
 //
-// Block-diagonal group windows (nbody_rows with group_size gs > 0) replace
-// the `group_size > 0` mode of the same Pallas kernel
-// (pallas_nbody.py:121-137 the window, :164-167 the mask, :247-248 the loop
-// bounds). A flattened ensemble of B realizations of gs stars each (global
-// id = realization * gs + star) is one B*gs-row sweep in which a row only
-// feels the columns of its own realization: id / gs == col / gs. That is a
-// different sum from the plain sweep, not a faster way to the same one.
+// One launch a call, in a fixed order: with more than one split every block
+// writes its slab of partial sums ([rows][NSUM]), fences and takes a ticket
+// of a per-device zeroed counter buffer; in each group of RED_GROUP splits
+// the block that takes the group's last ticket sums the group's slabs in
+// split order, and the block that takes the last group ticket sums the
+// groups in order, scales by G and writes the rows. The last ticket resets
+// its counter, so the counters are zero between launches; the launches
+// that share them must stay in one stream's order (cuda_nbody._counters).
+// The order of every sum is fixed, so a repeat gives the same bits.
+//
+// f32 round-off: each tile's sums start from zero and are added to the
+// running sums once a tile, then across lanes, then across splits, which
+// keeps them within the 1e-5 (of the max) bar of the f64 result at the N
+// of a large cluster; one running sum a row over all N columns does not
+// (2.5e-5 at N = 131072 on an H100). d2 = dx^2 + dy^2 + dz^2 is formed
+// once; r^2 = d2 + eps2 for the forces and d2 + pot_eps2 for a separately
+// softened potential (the JAX form r2 - eps2 + pot_eps2 cancels in f32 when
+// d2 is much smaller than eps2).
+//
+// eps2 = 0: the callers pass cfg.eps2 or 1e-30, and `softening=0` gives
+// eps2 = 0. The SFU's rsqrt then flushes a subnormal d2 to zero, so a
+// distinct pair closer than ~1e-19 pc gets inf where rsqrtf gave a huge
+// finite value; a coincident pair gets inf under either.
+//
+// Block-diagonal group windows (kernel 1b, group_size gs > 0) replace the
+// `group_size > 0` mode of the same Pallas kernel (pallas_nbody.py:121-137
+// the window, :164-167 the mask, :247-248 the loop bounds). A flattened
+// ensemble of B realizations of gs stars each (global id = realization *
+// gs + star) is one B*gs-row sweep in which a row only feels the columns of
+// its own realization: id / gs == col / gs. That is a different sum from
+// the plain sweep, not a faster way to the same one.
 //   * Window: each block of TB rows reduces the smallest and largest valid
 //     row id among its rows (padding rows are -1) in shared memory; a
 //     scattered fast-group subset may span several groups. Its columns are
 //     [g_lo gs, (g_hi + 1) gs) clipped to [0, n), with
 //     g_lo = min id / gs and g_hi = max id / gs. A block of padding rows
-//     only has an empty window and writes zero partials.
-//   * The gridDim.y column splits divide that window, not [0, n), so a
-//     64000-row sweep of 64 realizations of 1000 stars does not launch
-//     blocks that find no columns; tiles start at the window's start.
-//   * Its own kernel (group_sweep) on the FMA loop that kernel 3 shares
-//     (pair_fma.cuh: packed float4 columns, cp.async double buffering, the
-//     SFU's rsqrt), so the select runs only where a tile needs it. A row
-//     of group g keeps the columns of [g gs, (g + 1) gs) in its split that
-//     are not its own id (a select, never a product with 0, from the
-//     row's group range: no pair divides); a padding row (id -1) keeps
-//     none. A block whose live rows are all real and of one group sweeps
-//     only that group's columns, so its tiles run unmasked except the one
-//     that holds its own ids and a split's ragged last tile (8 x 10240:
-//     39 of a block's 40 tiles unmasked); a block that straddles groups,
-//     holds padding rows or scatters over the ensemble masks every tile.
+//     only has an empty window and writes zero sums.
+//   * The gridDim.y column splits (cuda_nbody._splits) divide that window,
+//     not [0, n), so a 64000-row sweep of 64 realizations of 1000 stars
+//     does not launch blocks that find no columns; tiles start at the
+//     window's start.
+//   * A row of group g keeps the columns of [g gs, (g + 1) gs) in its split
+//     that are not its own id (a select from the row's group range: no
+//     pair divides); a padding row (id -1) keeps none. A block whose live
+//     rows are all real and of one group sweeps only that group's columns,
+//     so its tiles run unmasked except the one that holds its own ids and a
+//     split's ragged last tile (8 x 10240: 39 of a block's 40 tiles
+//     unmasked); a block that straddles groups, holds padding rows or
+//     scatters over the ensemble masks every tile.
 //   * The bound: B gs^2 useful pairs (one realization each), plus the
 //     masked pairs of blocks whose rows straddle two groups, roughly TB/gs
 //     of the work for contiguous rows; bound by FP32 issue and, with a
 //     separately softened potential, close to the SFU's rate too.
-// The per-tile two-level sums and the ordered reduce_partials are shared
-// with the plain sweep, so a repeat gives the same bits.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; scripts/fma_turns.py, device
+// only, PERF.md §6), FMA body against matmul body at each path's shape,
+// ms, with the FMA body's bound:
+//   kernel 1 / 1c, jerk + raw pot, n = 8192       0.096 / 0.119  (0.050)
+//   kernel 1 / 1c, jerk + raw pot, N = 32768      1.34-1.39 / 1.56  (0.80)
+//   kernel 1 / 1c, the virial sweep, N = 409600   93.7 / 119  (75.1)
+//   kernel 2 / 2c, K = 256 against N = 32768      0.019 / 0.0225  (0.0063)
+//   kernel 2 / 2c, K = 512 against N = 409600     0.251-0.253 / 0.307  (0.157)
+// The long sweeps are bound by issue: ~33 instructions a pair with the
+// jerk and a separate potential (N = 32768: 78 % of that rate, 59 % of
+// the FP32 bound), ~14 for acceleration and potential (the virial sweep:
+// 80 % of the FP32 bound); kernel 2 at K = 512 reaches 62 %. At a few
+// hundred rows a launch pays ~11 us that does not shrink with the columns
+// (the first tile's staging, the split sum's two ticket phases, the
+// launch) beside ~8 us of sweep, so K = 256 reaches 33 %.
 //
 // The matmul reduction (pair_sweep_mma, launched by nbody_rows_mma_launch
 // and nbody_predcols_mma_launch) replaces the `use_mxu=True` body of both
@@ -141,7 +194,7 @@
 //     barrier a tile.
 //   * One launch, in a fixed order: the grid is (row blocks, column
 //     splits), each split a run of whole tiles chosen by the wrapper's
-//     planner (cuda_nbody.mma_plan) to fill whole waves of the card's
+//     planner (cuda_nbody.split_plan) to fill whole waves of the card's
 //     resident blocks. With more than one split every block writes its
 //     slab of partials (Sw, Sws, the explicit potential: 17 sums a row),
 //     fences and takes a ticket; in each group of RED_GROUP splits the
@@ -170,347 +223,400 @@ using pair_fma::rsqrt_ftz;
 using pair_fma::cp_async4;
 using pair_fma::cp_async_wait_all;
 
-constexpr int TB = 128;      // rows (threads) per block
-constexpr int TJ = 256;      // source columns per shared-memory tile
-constexpr int NSUM = 7;      // ax ay az jx jy jz pot
+constexpr int TB = 128;              // rows per block
+constexpr int TJ = pair_fma::TILE;   // source columns per staged tile
+constexpr int NSUM = 7;              // ax ay az jx jy jz pot
 
-template <bool WITH_JERK, bool WITH_POT, bool SEP_POT, bool PRED>
-__global__ void __launch_bounds__(TB) pair_sweep(
-    const float* __restrict__ rows_pos,    // [B,3]
-    const float* __restrict__ rows_vel,    // [B,3]
-    const int* __restrict__ row_ids,       // [B] global column id, -1 = pad
-    int b,
-    const float* __restrict__ pos,         // [N,3] (step-start if PRED)
-    const float* __restrict__ vel,         // [N,3]
-    const float* __restrict__ acc0,        // [N,3] PRED only
-    const float* __restrict__ jerk0,       // [N,3] PRED only
-    const float* __restrict__ mass,        // [N]
-    int n,
-    int cols_per_split,
-    const float* __restrict__ tau_ptr,     // [1] PRED only
-    float eps2,
-    float pot_eps2,
-    float* __restrict__ partial)           // [splits, B, NSUM]
+// ---------------------------------------------------------------------------
+// the ordered sum of a row block's column splits, inside the launch
+// ---------------------------------------------------------------------------
+
+// splits summed by one block before the final sum over the groups
+constexpr int RED_GROUP = 16;
+
+// out[e] = sum over splits k0, k0 + step, ... (< k1), in that order, of
+// word e of split k's slab (a row block's [rows][NS] sums at row0 of
+// partial [splits, B, NS]); this thread's words only. Each thread keeps
+// its words in registers and four slabs' loads in flight (against two:
+// 3-5 % off kernels 1 and 2 at 256 rows on an H100, nothing elsewhere).
+template <int NS, int THREADS>
+__device__ __forceinline__ void slab_sum(const float* partial, int b,
+                                         int row0, int words, int k0, int k1,
+                                         int step, float* out)
 {
-    __shared__ float sx[TJ], sy[TJ], sz[TJ];
-    __shared__ float svx[TJ], svy[TJ], svz[TJ];
-    __shared__ float sm[TJ];
+    constexpr int WORDS = (TB * NS + THREADS - 1) / THREADS;
+    const int tid = threadIdx.x;
+    float v[WORDS];
+#pragma unroll
+    for (int j = 0; j < WORDS; ++j) v[j] = 0.f;
+#pragma unroll 4
+    for (int k = k0; k < k1; k += step) {
+        const float* slab = partial + ((size_t)k * b + row0) * NS;
+#pragma unroll
+        for (int j = 0; j < WORDS; ++j) {
+            const int e = tid + j * THREADS;
+            if (e < words) v[j] += __ldcg(slab + e);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < WORDS; ++j) {
+        const int e = tid + j * THREADS;
+        if (e < words) out[e] = v[j];
+    }
+}
 
-    const int row = blockIdx.x * TB + threadIdx.x;
-    const bool live = row < b;
-    float xi = 0.f, yi = 0.f, zi = 0.f, vxi = 0.f, vyi = 0.f, vzi = 0.f;
+// This block's ticket of a counter: true in the block that takes the
+// last of `of` tickets (which then resets the counter), after a fence
+// that makes the partials written before the ticket visible to it.
+__device__ __forceinline__ bool last_ticket(int* counter, int of)
+{
+    __shared__ int s_last;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        s_last = atomicAdd(counter, 1) == of - 1;
+        if (s_last) *counter = 0;
+    }
+    __syncthreads();
+    if (!s_last) return false;
+    __threadfence();
+    return true;
+}
+
+// The ordered sum of a row block's splits, in one launch. Every split
+// writes its slab (`red`, the block's [rows][NS] sums in shared memory);
+// within each group of RED_GROUP splits the block that takes the group's
+// last ticket sums the group's slabs in split order into the group's first
+// slab; the block that takes the last group ticket sums the group slabs in
+// group order into `red`. The order is fixed, so the bits do not depend on
+// which blocks finish last. counters: (groups + 1) a row block, zero
+// between launches. Returns true in that one block per row block.
+template <int NS, int THREADS>
+__device__ bool reduce_splits(float* partial, int* counters, int b,
+                              float* red, int row0, int words)
+{
+    const int splits = static_cast<int>(gridDim.y);
+    const int groups = (splits + RED_GROUP - 1) / RED_GROUP;
+    const int y = static_cast<int>(blockIdx.y);
+    int* count = counters + (size_t)blockIdx.x * (groups + 1);
+    float* slab = partial + ((size_t)y * b + row0) * NS;
+    for (int e = threadIdx.x; e < words; e += THREADS) slab[e] = red[e];
+    const int g = y / RED_GROUP;
+    const int k0 = g * RED_GROUP;
+    const int k1 = min(splits, k0 + RED_GROUP);
+    if (!last_ticket(count + g, k1 - k0)) return false;
+    if (groups == 1) {
+        slab_sum<NS, THREADS>(partial, b, row0, words, 0, splits, 1, red);
+        __syncthreads();
+        return true;
+    }
+    slab_sum<NS, THREADS>(partial, b, row0, words, k0, k1, 1,
+                          partial + ((size_t)k0 * b + row0) * NS);
+    if (!last_ticket(count + groups, groups)) return false;
+    slab_sum<NS, THREADS>(partial, b, row0, words, 0, splits, RED_GROUP,
+                          red);
+    __syncthreads();
+    return true;
+}
+
+// ---------------------------------------------------------------------------
+// kernels 1, 1b and 2: the FMA bodies, on the loop of pair_fma.cuh
+// ---------------------------------------------------------------------------
+
+constexpr int KIND_ROWS = 0;     // kernel 1: the rows against [0, n)
+constexpr int KIND_GROUP = 1;    // kernel 1b: each row's own group only
+constexpr int KIND_PRED = 2;     // kernel 2: columns predicted to tau
+
+// kernel 2's raw column words, [word][TJ]: x y z m, vx vy vz, then the
+// step-start acc and jerk
+constexpr int PRED_WORDS = 13;
+
+// Everything a launch needs, passed by value (kernel parameter space).
+struct FmaArgs {
+    const float* rows_pos;         // [B,3]
+    const float* rows_vel;         // [B,3]
+    const int* row_ids;            // [B] global column id, -1 = pad
+    int b;
+    const float* pos;              // [N,3] (step-start for KIND_PRED)
+    const float* vel;              // [N,3]
+    const float* acc0;             // [N,3] KIND_PRED only
+    const float* jerk0;            // [N,3] KIND_PRED only
+    const float* mass;             // [N]
+    int n;
+    int cols_per_split;            // whole tiles (KIND_ROWS, KIND_PRED)
+    int gs;                        // stars per group (KIND_GROUP)
+    const float* tau;              // [1] KIND_PRED only
+    float eps2, pot_eps2, g;
+    float* partial;                // [splits, B, NSUM]; splits > 1 only
+    int* counters;                 // (groups + 1) a row block, 0 between
+    float* acc;                    // [B,3]
+    float* jerk;                   // [B,3]
+    float* pot;                    // [B] or null
+};
+
+// One (row block, column split) of an FMA body: TB rows, each swept by
+// LANES column lanes; in the block that finishes a row block's splits
+// last, their sum in split order, scaled by G and stored: one launch per
+// call. __launch_bounds__ asks for 32 resident warps an SM (64 registers).
+template <bool WITH_JERK, bool WITH_POT, bool SEP_POT, int KIND, int LANES>
+__global__ void __launch_bounds__(TB * LANES, 8 / LANES)
+fma_sweep(const __grid_constant__ FmaArgs a)
+{
+    static_assert(KIND != KIND_GROUP || LANES == 1,
+                  "the group windows sweep one lane a row");
+    constexpr int NT = TB * LANES;          // threads
+    constexpr int W = TJ / LANES;           // a lane's columns of a tile
+    __shared__ pair_fma::Tile tiles[2];
+    __shared__ float raw[KIND == KIND_PRED ? PRED_WORDS * TJ : 1];
+    __shared__ int s_lo, s_hi, s_pad;       // KIND_GROUP: the rows' ids
+    static_assert(LANES * TB * NSUM * sizeof(float) <= sizeof(tiles),
+                  "the lanes' sums fit in the tile buffers");
+
+    const int tid = threadIdx.x;
+    const int cl = tid / TB;                // this thread's column lane
+    const int row0 = blockIdx.x * TB;
+    const int row = row0 + tid % TB;
+    const bool live = row < a.b;
+    pair_fma::Row r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     int id = -1;
     if (live) {
-        xi = rows_pos[3 * row + 0];
-        yi = rows_pos[3 * row + 1];
-        zi = rows_pos[3 * row + 2];
+        r.x = a.rows_pos[3 * row + 0];
+        r.y = a.rows_pos[3 * row + 1];
+        r.z = a.rows_pos[3 * row + 2];
         if (WITH_JERK) {
-            vxi = rows_vel[3 * row + 0];
-            vyi = rows_vel[3 * row + 1];
-            vzi = rows_vel[3 * row + 2];
+            r.vx = a.rows_vel[3 * row + 0];
+            r.vy = a.rows_vel[3 * row + 1];
+            r.vz = a.rows_vel[3 * row + 2];
         }
-        id = row_ids[row];
+        id = a.row_ids[row];
     }
     float tau = 0.f, t2h = 0.f, t3h = 0.f;
-    if (PRED) {
-        tau = *tau_ptr;
+    if (KIND == KIND_PRED) {
+        tau = *a.tau;
         t2h = 0.5f * tau * tau;
         t3h = t2h * tau * (1.0f / 3.0f);
     }
 
-    const int c_begin = blockIdx.y * cols_per_split;
-    const int c_end = min(n, c_begin + cols_per_split);
-    float ax = 0.f, ay = 0.f, az = 0.f;
-    float jx = 0.f, jy = 0.f, jz = 0.f;
-    float pot = 0.f;
-
-    for (int t0 = c_begin; t0 < c_end; t0 += TJ) {
-        __syncthreads();  // the previous tile has been consumed
-        for (int k = threadIdx.x; k < TJ; k += TB) {
-            const int c = t0 + k;
-            float px = 0.f, py = 0.f, pz = 0.f;
-            float qx = 0.f, qy = 0.f, qz = 0.f, m = 0.f;
-            if (c < c_end) {
-                px = pos[3 * c + 0];
-                py = pos[3 * c + 1];
-                pz = pos[3 * c + 2];
-                if (WITH_JERK) {
-                    qx = vel[3 * c + 0];
-                    qy = vel[3 * c + 1];
-                    qz = vel[3 * c + 2];
-                }
-                if (PRED) {
-                    const float ax0 = acc0[3 * c + 0];
-                    const float ay0 = acc0[3 * c + 1];
-                    const float az0 = acc0[3 * c + 2];
-                    const float jx0 = jerk0[3 * c + 0];
-                    const float jy0 = jerk0[3 * c + 1];
-                    const float jz0 = jerk0[3 * c + 2];
-                    px = px + tau * qx + t2h * ax0 + t3h * jx0;
-                    py = py + tau * qy + t2h * ay0 + t3h * jy0;
-                    pz = pz + tau * qz + t2h * az0 + t3h * jz0;
-                    qx = qx + tau * ax0 + t2h * jx0;
-                    qy = qy + tau * ay0 + t2h * jy0;
-                    qz = qz + tau * az0 + t2h * jz0;
-                }
-                m = mass[c];
-            }
-            sx[k] = px; sy[k] = py; sz[k] = pz;
-            svx[k] = qx; svy[k] = qy; svz[k] = qz;
-            sm[k] = m;
+    // this split's columns [c_begin, c_end)
+    int c_begin = blockIdx.y * a.cols_per_split;
+    int c_end = min(a.n, c_begin + a.cols_per_split);
+    // KIND_GROUP: this row's columns in the split (its own group's, none
+    // for padding), and whether the block's live rows are real and of one
+    // group
+    int g_lo = 0, g_hi = 0;
+    bool uniform = false;
+    if (KIND == KIND_GROUP) {
+        const int gs = a.gs;
+        if (tid == 0) {
+            s_lo = INT_MAX;
+            s_hi = -1;
+            s_pad = 0;
         }
         __syncthreads();
-
-        // two-level summation: each tile's sums start from zero and are
-        // added to the running totals once per tile, so f32 round-off grows
-        // with TJ + n / TJ terms rather than with n
-        float tax = 0.f, tay = 0.f, taz = 0.f;
-        float tjx = 0.f, tjy = 0.f, tjz = 0.f;
-        float tpot = 0.f;
-#pragma unroll 4
-        for (int k = 0; k < TJ; ++k) {
-            const int col = t0 + k;
-            const float dx = sx[k] - xi;
-            const float dy = sy[k] - yi;
-            const float dz = sz[k] - zi;
-            const float d2 = dx * dx + dy * dy + dz * dz;
-            const float mj = sm[k];
-            // self pair by id, padding and other splits' columns by range
-            const bool valid = (col != id) && (col < c_end);
-            const float inv_r = valid ? rsqrtf(d2 + eps2) : 0.f;
-            const float inv_r2 = inv_r * inv_r;
-            const float w = mj * (inv_r * inv_r2);  // m_j / r^3, masked
-            tax += w * dx;
-            tay += w * dy;
-            taz += w * dz;
-            if (WITH_JERK) {
-                const float dvx = svx[k] - vxi;
-                const float dvy = svy[k] - vyi;
-                const float dvz = svz[k] - vzi;
-                const float s = 3.0f * (dx * dvx + dy * dvy + dz * dvz) * inv_r2;
-                tjx += w * (dvx - s * dx);
-                tjy += w * (dvy - s * dy);
-                tjz += w * (dvz - s * dz);
-            }
-            if (WITH_POT) {
-                if (SEP_POT) {
-                    const float inv_rp = valid ? rsqrtf(d2 + pot_eps2) : 0.f;
-                    tpot -= mj * inv_rp;
-                } else {
-                    tpot -= mj * inv_r;
-                }
-            }
+        if (id >= 0) {
+            atomicMin(&s_lo, id);
+            atomicMax(&s_hi, id);
+        } else if (live) {
+            s_pad = 1;
         }
-        ax += tax; ay += tay; az += taz;
-        jx += tjx; jy += tjy; jz += tjz;
-        pot += tpot;
-    }
-    if (live) {
-        float* out = partial + ((size_t)blockIdx.y * b + row) * NSUM;
-        out[0] = ax; out[1] = ay; out[2] = az;
-        out[3] = jx; out[4] = jy; out[5] = jz;
-        out[6] = pot;
-    }
-}
-
-// Sum the per-split partials in split order and scale by G: one thread per
-// (row, sum), so neighbouring threads read neighbouring words of each
-// split's [B, NSUM] slab.
-__global__ void reduce_partials(
-    const float* __restrict__ partial, int splits, int b, float g,
-    int with_jerk, int with_pot,
-    float* __restrict__ acc, float* __restrict__ jerk,
-    float* __restrict__ pot)                // pot may be null
-{
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= b * NSUM) return;
-    const int row = t / NSUM;
-    const int c = t - row * NSUM;
-    const size_t stride = (size_t)b * NSUM;
-    float s = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < splits; ++k) s += partial[k * stride + t];
-    if (c < 3) {
-        acc[3 * row + c] = g * s;
-    } else if (c < 6) {
-        jerk[3 * row + c - 3] = with_jerk ? g * s : 0.f;
-    } else if (pot != nullptr) {
-        pot[row] = with_pot ? g * s : 0.f;
-    }
-}
-
-int cols_per_split_of(int n, int splits)
-{
-    // whole tiles per split, so only the last split has a ragged tile
-    const int tiles = (n + TJ - 1) / TJ;
-    const int tiles_per_split = (tiles + splits - 1) / splits;
-    return tiles_per_split * TJ;
-}
-
-// The row sweep (no prediction) for one (jerk, potential) mode.
-void launch_rows(dim3 grid, cudaStream_t st,
-                 const float* rows_pos, const float* rows_vel,
-                 const int* row_ids, int b, const float* pos,
-                 const float* vel, const float* mass, int n,
-                 float eps2, float pot_eps2,
-                 int with_jerk, int with_pot, int sep_pot, float* partial)
-{
-    const int cps = cols_per_split_of(n, grid.y);
-#define AL26_ROWS(J, P, S)                                                  \
-    pair_sweep<J, P, S, false><<<grid, TB, 0, st>>>(                        \
-        rows_pos, rows_vel, row_ids, b, pos, vel, nullptr, nullptr, mass,   \
-        n, cps, nullptr, eps2, pot_eps2, partial)
-    if (with_jerk) {
-        if (!with_pot) AL26_ROWS(true, false, false);
-        else if (sep_pot) AL26_ROWS(true, true, true);
-        else AL26_ROWS(true, true, false);
-    } else {
-        if (!with_pot) AL26_ROWS(false, false, false);
-        else if (sep_pot) AL26_ROWS(false, true, true);
-        else AL26_ROWS(false, true, false);
-    }
-#undef AL26_ROWS
-}
-
-// ---------------------------------------------------------------------------
-// kernel 1b: the block-diagonal group windows (group_size gs > 0)
-// ---------------------------------------------------------------------------
-
-// One (row block, column split) of a grouped sweep on the shared FMA loop
-// (pair_fma.cuh): the block's window of groups as in the header, columns
-// staged as packed float4 by cp.async into a double buffer (one barrier a
-// tile), and the select only in the tiles that need it: where the block's
-// live rows are all real and of one group, the split's columns are all
-// that group's, so only a tile that holds one of the rows' own ids (the
-// self pairs) or a split's ragged last tile is masked; a block whose rows
-// straddle groups, hold padding or scatter over the ensemble (a fast
-// group) masks every tile by each row's group range and id.
-template <bool WITH_JERK, bool WITH_POT, bool SEP_POT>
-__global__ void __launch_bounds__(TB) group_sweep(
-    const float* __restrict__ rows_pos,    // [B,3]
-    const float* __restrict__ rows_vel,    // [B,3]
-    const int* __restrict__ row_ids,       // [B] global column id, -1 = pad
-    int b,
-    const float* __restrict__ pos,         // [N,3]
-    const float* __restrict__ vel,         // [N,3]
-    const float* __restrict__ mass,        // [N]
-    int n,
-    int gs,                                // stars per group
-    float eps2,
-    float pot_eps2,
-    float* __restrict__ partial)           // [splits, B, NSUM]
-{
-    __shared__ pair_fma::Tile tiles[2];
-    __shared__ int s_lo, s_hi, s_pad;      // the rows' id range; a padding row
-
-    const int tid = threadIdx.x;
-    const int row = blockIdx.x * TB + tid;
-    const bool live = row < b;
-    pair_fma::Row r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    int id = -1;
-    if (live) {
-        r.x = rows_pos[3 * row + 0];
-        r.y = rows_pos[3 * row + 1];
-        r.z = rows_pos[3 * row + 2];
-        if (WITH_JERK) {
-            r.vx = rows_vel[3 * row + 0];
-            r.vy = rows_vel[3 * row + 1];
-            r.vz = rows_vel[3 * row + 2];
+        __syncthreads();
+        int w_lo = 0, w_hi = 0;             // empty for all-padding blocks
+        if (s_hi >= 0) {
+            w_lo = (s_lo / gs) * gs;
+            w_hi = min(a.n, (s_hi / gs + 1) * gs);
         }
-        id = row_ids[row];
+        // whole tiles per split from the window's start
+        const int splits = static_cast<int>(gridDim.y);
+        const int tiles_w = (w_hi - w_lo + TJ - 1) / TJ;
+        const int per_split = (tiles_w + splits - 1) / splits * TJ;
+        c_begin = w_lo + static_cast<int>(blockIdx.y) * per_split;
+        c_end = min(w_hi, c_begin + per_split);
+        if (id >= 0) {
+            g_lo = max(c_begin, (id / gs) * gs);
+            g_hi = min(c_end, (id / gs + 1) * gs);
+        }
+        uniform = s_pad == 0 && s_hi >= 0 && s_lo / gs == s_hi / gs;
     }
-    if (tid == 0) {
-        s_lo = INT_MAX;
-        s_hi = -1;
-        s_pad = 0;
-    }
-    __syncthreads();
-    if (id >= 0) {
-        atomicMin(&s_lo, id);
-        atomicMax(&s_hi, id);
-    } else if (live) {
-        s_pad = 1;
-    }
-    __syncthreads();
-    int w_lo = 0, w_hi = 0;                // empty for all-padding blocks
-    if (s_hi >= 0) {
-        w_lo = (s_lo / gs) * gs;
-        w_hi = min(n, (s_hi / gs + 1) * gs);
-    }
-    // whole tiles per split from the window's start, as cols_per_split_of
-    // does for [0, n)
-    const int splits = static_cast<int>(gridDim.y);
-    const int tiles_w = (w_hi - w_lo + TJ - 1) / TJ;
-    const int per_split = (tiles_w + splits - 1) / splits * TJ;
-    const int c_begin = w_lo + static_cast<int>(blockIdx.y) * per_split;
-    const int c_end = min(w_hi, c_begin + per_split);
     const int n_tiles = c_end > c_begin ? (c_end - c_begin + TJ - 1) / TJ : 0;
-    // this row's columns in the split: its own group's (none for padding)
-    int g_lo = 0, g_hi = 0;
-    if (id >= 0) {
-        g_lo = max(c_begin, (id / gs) * gs);
-        g_hi = min(c_end, (id / gs + 1) * gs);
-    }
-    const bool uniform = s_pad == 0 && s_hi >= 0 && s_lo / gs == s_hi / gs;
 
+    // copy tile i's columns: straight into buffer `buf`, or (KIND_PRED)
+    // their raw words into `raw`, each thread its own slots; the copies
+    // complete at the next cp_async_wait_all
     auto stage = [&](int i, int buf) {
         const int t0 = c_begin + i * TJ;
         const int ncols = min(TJ, c_end - t0);
-        for (int k = tid; k < ncols; k += TB)
-            pair_fma::stage_column_async<WITH_JERK>(tiles[buf], k, pos, vel,
-                                                    mass, t0 + k);
+        for (int k = tid; k < ncols; k += NT) {
+            const int c = t0 + k;
+            if constexpr (KIND == KIND_PRED) {
+                float* w = raw + k;
+#pragma unroll
+                for (int e = 0; e < 3; ++e) {
+                    cp_async4(w + e * TJ, a.pos + 3 * c + e);
+                    cp_async4(w + (4 + e) * TJ, a.vel + 3 * c + e);
+                    cp_async4(w + (7 + e) * TJ, a.acc0 + 3 * c + e);
+                    cp_async4(w + (10 + e) * TJ, a.jerk0 + 3 * c + e);
+                }
+                cp_async4(w + 3 * TJ, a.mass + c);
+            } else {
+                pair_fma::stage_column_async<WITH_JERK>(tiles[buf], k, a.pos,
+                                                        a.vel, a.mass, c);
+            }
+        }
     };
+    // KIND_PRED: tile i's raw words (this thread's slots) predicted to tau
+    // into buffer `buf` (cuda_nbody.predict_columns' coefficient forms)
+    auto predict = [&](int i, int buf) {
+        const int ncols = min(TJ, c_end - (c_begin + i * TJ));
+        for (int k = tid; k < ncols; k += NT) {
+            const float* w = raw + k;
+            const float vx = w[4 * TJ], vy = w[5 * TJ], vz = w[6 * TJ];
+            const float ax0 = w[7 * TJ], ay0 = w[8 * TJ], az0 = w[9 * TJ];
+            const float jx0 = w[10 * TJ], jy0 = w[11 * TJ];
+            const float jz0 = w[12 * TJ];
+            tiles[buf].pm[k] = make_float4(
+                w[0] + tau * vx + t2h * ax0 + t3h * jx0,
+                w[TJ] + tau * vy + t2h * ay0 + t3h * jy0,
+                w[2 * TJ] + tau * vz + t2h * az0 + t3h * jz0, w[3 * TJ]);
+            tiles[buf].v[k] = make_float4(vx + tau * ax0 + t2h * jx0,
+                                          vy + tau * ay0 + t2h * jy0,
+                                          vz + tau * az0 + t2h * jz0, 0.f);
+        }
+    };
+
+    // double buffer: tile i + 1 is copied while tile i is swept, one
+    // barrier a tile
     pair_fma::Sums s = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (n_tiles > 0) {
         stage(0, 0);
         cp_async_wait_all();
+        if constexpr (KIND == KIND_PRED) predict(0, 0);
         __syncthreads();
     }
     for (int i = 0; i < n_tiles; ++i) {
-        if (i + 1 < n_tiles) stage(i + 1, (i + 1) & 1);
+        const bool more = i + 1 < n_tiles;
+        if (more) stage(i + 1, (i + 1) & 1);
         const int t0 = c_begin + i * TJ;
         const int ncols = min(TJ, c_end - t0);
         const pair_fma::Tile& tile = tiles[i & 1];
-        if (uniform && ncols == TJ && (t0 > s_hi || t0 + TJ <= s_lo))
-            pair_fma::sweep_tile<WITH_JERK, WITH_POT, SEP_POT, false>(
-                tile, TJ, r, 0, TJ, -1, eps2, pot_eps2, s);
-        else
-            pair_fma::sweep_tile<WITH_JERK, WITH_POT, SEP_POT, true>(
-                tile, ncols, r, g_lo - t0, g_hi - t0, id - t0, eps2,
-                pot_eps2, s);
-        cp_async_wait_all();
+        if constexpr (KIND == KIND_GROUP) {
+            if (uniform && ncols == TJ && (t0 > s_hi || t0 + TJ <= s_lo))
+                pair_fma::sweep_tile<WITH_JERK, WITH_POT, SEP_POT, false>(
+                    tile, TJ, r, 0, TJ, -1, a.eps2, a.pot_eps2, s);
+            else
+                pair_fma::sweep_tile<WITH_JERK, WITH_POT, SEP_POT, true>(
+                    tile, ncols, r, g_lo - t0, g_hi - t0, id - t0, a.eps2,
+                    a.pot_eps2, s);
+        } else {
+            // this lane's columns; the self-pair mask only where one of
+            // the warp's row ids falls in them (a warp-uniform branch)
+            const int k0 = cl * W;
+            const int k1 = min(k0 + W, ncols);
+            const bool self = __any_sync(0xffffffffu,
+                                         id >= t0 + k0 && id < t0 + k1);
+            if (!self && ncols == TJ)
+                pair_fma::sweep_span<WITH_JERK, WITH_POT, SEP_POT, false>(
+                    tile, k0, k0 + W, r, 0, 0, -1, a.eps2, a.pot_eps2, s);
+            else if (k0 < k1)
+                pair_fma::sweep_span<WITH_JERK, WITH_POT, SEP_POT, true>(
+                    tile, k0, k1, r, k0, k1, id - t0, a.eps2, a.pot_eps2,
+                    s);
+        }
+        if (more) {
+            cp_async_wait_all();        // tile i + 1 has landed
+            if constexpr (KIND == KIND_PRED) predict(i + 1, (i + 1) & 1);
+        }
         __syncthreads();
     }
-    if (live) {
-        float* out = partial + ((size_t)blockIdx.y * b + row) * NSUM;
-        out[0] = s.ax; out[1] = s.ay; out[2] = s.az;
-        out[3] = s.jx; out[4] = s.jy; out[5] = s.jz;
-        out[6] = s.pot;
+
+    // the block's sums, [TB][NSUM] a lane, in the tile buffers (free after
+    // the loop's last barrier); the lanes added in lane order into lane 0's
+    float* red = reinterpret_cast<float*>(tiles);
+    float* mine = red + (cl * TB + tid % TB) * NSUM;
+    mine[0] = s.ax; mine[1] = s.ay; mine[2] = s.az;
+    mine[3] = s.jx; mine[4] = s.jy; mine[5] = s.jz;
+    mine[6] = s.pot;
+    __syncthreads();
+    if (LANES > 1) {
+        if (tid < TB) {
+#pragma unroll
+            for (int e = 0; e < NSUM; ++e) {
+                float v = mine[e];
+#pragma unroll
+                for (int l = 1; l < LANES; ++l) v += mine[l * TB * NSUM + e];
+                mine[e] = v;
+            }
+        }
+        __syncthreads();
+    }
+    const int rows = min(TB, a.b - row0);
+    if (gridDim.y > 1 && !reduce_splits<NSUM, NT>(a.partial, a.counters, a.b,
+                                                  red, row0, rows * NSUM))
+        return;
+    if (tid < rows) {
+        const float* v = red + tid * NSUM;
+        const int rr = row0 + tid;
+        a.acc[3 * rr + 0] = a.g * v[0];
+        a.acc[3 * rr + 1] = a.g * v[1];
+        a.acc[3 * rr + 2] = a.g * v[2];
+        a.jerk[3 * rr + 0] = WITH_JERK ? a.g * v[3] : 0.f;
+        a.jerk[3 * rr + 1] = WITH_JERK ? a.g * v[4] : 0.f;
+        a.jerk[3 * rr + 2] = WITH_JERK ? a.g * v[5] : 0.f;
+        if (a.pot != nullptr) a.pot[rr] = WITH_POT ? a.g * v[6] : 0.f;
     }
 }
 
-// The grouped sweep for one (jerk, potential) mode.
-void launch_group(dim3 grid, cudaStream_t st,
-                  const float* rows_pos, const float* rows_vel,
-                  const int* row_ids, int b, const float* pos,
-                  const float* vel, const float* mass, int n, int gs,
-                  float eps2, float pot_eps2,
-                  int with_jerk, int with_pot, int sep_pot, float* partial)
+// One FMA variant's launch, or (blocks_per_sm != null) its occupancy.
+template <bool WITH_JERK, bool WITH_POT, bool SEP_POT, int KIND, int LANES>
+int fma_variant(const FmaArgs& a, dim3 grid, cudaStream_t st,
+                int* blocks_per_sm)
 {
-#define AL26_GROUP(J, P, S)                                                 \
-    group_sweep<J, P, S><<<grid, TB, 0, st>>>(                              \
-        rows_pos, rows_vel, row_ids, b, pos, vel, mass, n, gs, eps2,        \
-        pot_eps2, partial)
-    if (with_jerk) {
-        if (!with_pot) AL26_GROUP(true, false, false);
-        else if (sep_pot) AL26_GROUP(true, true, true);
-        else AL26_GROUP(true, true, false);
-    } else {
-        if (!with_pot) AL26_GROUP(false, false, false);
-        else if (sep_pot) AL26_GROUP(false, true, true);
-        else AL26_GROUP(false, true, false);
+    auto kernel = fma_sweep<WITH_JERK, WITH_POT, SEP_POT, KIND, LANES>;
+    if (blocks_per_sm != nullptr)
+        return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            blocks_per_sm, kernel, TB * LANES, 0));
+    kernel<<<grid, TB * LANES, 0, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The variant of `lanes` column lanes (1 or 4).
+template <bool WITH_JERK, bool WITH_POT, bool SEP_POT, int KIND>
+int fma_lanes(int lanes, const FmaArgs& a, dim3 grid, cudaStream_t st,
+              int* blocks_per_sm)
+{
+    switch (lanes) {
+        case 1:
+            return fma_variant<WITH_JERK, WITH_POT, SEP_POT, KIND, 1>(
+                a, grid, st, blocks_per_sm);
+        case 4:
+            return fma_variant<WITH_JERK, WITH_POT, SEP_POT, KIND, 4>(
+                a, grid, st, blocks_per_sm);
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
     }
-#undef AL26_GROUP
+}
+
+int fma_dispatch(int with_jerk, int with_pot, int sep_pot, int kind,
+                 int lanes, const FmaArgs& a, dim3 grid, cudaStream_t st,
+                 int* blocks_per_sm)
+{
+    if (kind == KIND_PRED)   // kernel 2: jerk, no potential
+        return fma_lanes<true, false, false, KIND_PRED>(lanes, a, grid, st,
+                                                        blocks_per_sm);
+    if (kind == KIND_GROUP && lanes != 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+#define AL26_FMA(J, P, S)                                                   \
+    (kind == KIND_GROUP                                                     \
+         ? fma_variant<J, P, S, KIND_GROUP, 1>(a, grid, st, blocks_per_sm)  \
+         : fma_lanes<J, P, S, KIND_ROWS>(lanes, a, grid, st, blocks_per_sm))
+    if (with_jerk) {
+        if (!with_pot) return AL26_FMA(true, false, false);
+        if (sep_pot) return AL26_FMA(true, true, true);
+        return AL26_FMA(true, true, false);
+    }
+    if (!with_pot) return AL26_FMA(false, false, false);
+    if (sep_pot) return AL26_FMA(false, true, true);
+    return AL26_FMA(false, true, false);
+#undef AL26_FMA
 }
 
 // ---------------------------------------------------------------------------
@@ -852,89 +958,6 @@ __device__ __forceinline__ void recover_row(const float* s, int row,
     }
 }
 
-// Split partials: a block's sums, [rows][NS_MMA], summed by
-// slab_sum over a run of splits' slabs, split by split in order; each
-// thread keeps RED_WORDS words, so many loads are in flight at once.
-constexpr int RED_WORDS = (MROWS * NS_MMA + MT - 1) / MT;
-// splits summed by one block before the final sum over the groups
-constexpr int RED_GROUP = 16;
-
-// out[e] = sum over splits k0, k0 + step, ... (< k1), in that order, of
-// partial slab k's word e (this thread's words only)
-__device__ __forceinline__ void slab_sum(const MmaArgs& a, int row0,
-                                         int words, int k0, int k1,
-                                         int step, float* out)
-{
-    const int tid = threadIdx.x;
-    float v[RED_WORDS];
-#pragma unroll
-    for (int j = 0; j < RED_WORDS; ++j) v[j] = 0.f;
-#pragma unroll 2
-    for (int k = k0; k < k1; k += step) {
-        const float* slab = a.partial + ((size_t)k * a.b + row0) * NS_MMA;
-#pragma unroll
-        for (int j = 0; j < RED_WORDS; ++j) {
-            const int e = tid + j * MT;
-            if (e < words) v[j] += __ldcg(slab + e);
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < RED_WORDS; ++j) {
-        const int e = tid + j * MT;
-        if (e < words) out[e] = v[j];
-    }
-}
-
-// This block's ticket of a counter: true in the block that takes the
-// last of `of` tickets (which then resets the counter), after a fence
-// that makes the partials written before the ticket visible to it.
-__device__ __forceinline__ bool last_ticket(int* counter, int of)
-{
-    __shared__ int s_last;
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        s_last = atomicAdd(counter, 1) == of - 1;
-        if (s_last) *counter = 0;
-    }
-    __syncthreads();
-    if (!s_last) return false;
-    __threadfence();
-    return true;
-}
-
-// The ordered sum of a row block's splits, in one launch. Every split
-// writes its slab of partials; within each group of RED_GROUP splits the
-// block that takes the group's last ticket sums the group's slabs in
-// split order into the group's first slab; the block that takes the last
-// group ticket sums the group slabs in group order into `red`. The order
-// is fixed, so the bits do not depend on which blocks finish last.
-// Returns true in that one block per row block.
-__device__ bool reduce_splits(const MmaArgs& a, float* red, int row0,
-                              int words)
-{
-    const int splits = static_cast<int>(gridDim.y);
-    const int groups = (splits + RED_GROUP - 1) / RED_GROUP;
-    const int y = static_cast<int>(blockIdx.y);
-    int* count = a.counters + (size_t)blockIdx.x * (groups + 1);
-    float* slab = a.partial + ((size_t)y * a.b + row0) * NS_MMA;
-    for (int e = threadIdx.x; e < words; e += MT) slab[e] = red[e];
-    const int g = y / RED_GROUP;
-    const int k0 = g * RED_GROUP;
-    const int k1 = min(splits, k0 + RED_GROUP);
-    if (!last_ticket(count + g, k1 - k0)) return false;
-    if (groups == 1) {
-        slab_sum(a, row0, words, 0, splits, 1, red);
-        __syncthreads();
-        return true;
-    }
-    slab_sum(a, row0, words, k0, k1, 1,
-             a.partial + ((size_t)k0 * a.b + row0) * NS_MMA);
-    if (!last_ticket(count + groups, groups)) return false;
-    slab_sum(a, row0, words, 0, splits, RED_GROUP, red);
-    __syncthreads();
-    return true;
-}
 
 // The sweep of one (row block, column split) and, in the block that
 // finishes a row block's splits last, their sum in split order and the
@@ -1059,7 +1082,9 @@ pair_sweep_mma(const __grid_constant__ MmaArgs a)
     }
     __syncthreads();
     const int rows = min(MROWS, a.b - row0);
-    if (gridDim.y > 1 && !reduce_splits(a, red, row0, rows * NS_MMA))
+    if (gridDim.y > 1
+        && !reduce_splits<NS_MMA, MT>(a.partial, a.counters, a.b, red, row0,
+                                      rows * NS_MMA))
         return;
     if (tid < rows)
         recover_row<WITH_JERK, POT>(red + tid * NS_MMA, row0 + tid, a, shx,
@@ -1111,58 +1136,63 @@ int mma_dispatch(int with_jerk, int pot_mode, int pred, const MmaArgs& a,
 
 extern "C" {
 
-// Kernel 1; group_size > 0 takes the block-diagonal group windows. Returns
-// cudaGetLastError() after the two launches.
+// Kernel 1 (group_size 0) or 1b (group_size > 0): `splits` column splits
+// (kernel 1: of cols_per_split columns, whole tiles; kernel 1b: of each
+// block's window), `lanes` column lanes a row (1 or 4; 1 for kernel 1b).
+// With splits > 1, partial holds [splits, B, 7] floats and counters
+// (ceil(splits / 16) + 1) zeroed ints a row block (every launch leaves
+// them zero). One launch; returns its cudaGetLastError().
 int nbody_rows_launch(
     const float* rows_pos, const float* rows_vel, const int* row_ids, int b,
     const float* pos, const float* vel, const float* mass, int n,
     float eps2, float pot_eps2, float g,
     int with_jerk, int with_pot, int sep_pot, int group_size,
-    float* partial, int splits,
+    float* partial, int* counters, int splits, int cols_per_split, int lanes,
     float* acc, float* jerk, float* pot, void* stream)
 {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    dim3 grid((b + TB - 1) / TB, splits);
-    if (group_size > 0)
-        launch_group(grid, st, rows_pos, rows_vel, row_ids, b, pos, vel,
-                     mass, n, group_size, eps2, pot_eps2, with_jerk,
-                     with_pot, sep_pot, partial);
-    else
-        launch_rows(grid, st, rows_pos, rows_vel, row_ids, b, pos, vel,
-                    mass, n, eps2, pot_eps2, with_jerk, with_pot, sep_pot,
-                    partial);
-    const int rb = 256;
-    reduce_partials<<<(b * NSUM + rb - 1) / rb, rb, 0, st>>>(
-        partial, splits, b, g, with_jerk, with_pot, acc, jerk, pot);
-    return static_cast<int>(cudaGetLastError());
+    const FmaArgs a{rows_pos, rows_vel, row_ids, b, pos, vel, nullptr,
+                    nullptr, mass, n, cols_per_split, group_size, nullptr,
+                    eps2, pot_eps2, g, partial, counters, acc, jerk, pot};
+    const dim3 grid((b + TB - 1) / TB, splits);
+    return fma_dispatch(with_jerk, with_pot, sep_pot,
+                        group_size > 0 ? KIND_GROUP : KIND_ROWS, lanes, a,
+                        grid, static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// Kernel 2. Returns cudaGetLastError() after the two launches.
+// Kernel 2: columns predicted to *tau from the step-start state. Splits,
+// lanes and scratch as for kernel 1. One launch; returns its
+// cudaGetLastError().
 int nbody_predcols_launch(
     const float* rows_pos, const float* rows_vel, const int* row_ids, int b,
     const float* pos0, const float* vel0, const float* acc0,
     const float* jerk0, const float* mass, int n,
     const float* tau, float eps2, float g,
-    float* partial, int splits,
+    float* partial, int* counters, int splits, int cols_per_split, int lanes,
     float* acc, float* jerk, void* stream)
 {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int cps = cols_per_split_of(n, splits);
-    dim3 grid((b + TB - 1) / TB, splits);
-    pair_sweep<true, false, false, true><<<grid, TB, 0, st>>>(
-        rows_pos, rows_vel, row_ids, b, pos0, vel0, acc0, jerk0, mass, n,
-        cps, tau, eps2, 0.f, partial);
-    const int rb = 256;
-    reduce_partials<<<(b * NSUM + rb - 1) / rb, rb, 0, st>>>(
-        partial, splits, b, g, 1, 0, acc, jerk, nullptr);
-    return static_cast<int>(cudaGetLastError());
+    const FmaArgs a{rows_pos, rows_vel, row_ids, b, pos0, vel0, acc0, jerk0,
+                    mass, n, cols_per_split, 0, tau, eps2, 0.f, g, partial,
+                    counters, acc, jerk, nullptr};
+    const dim3 grid((b + TB - 1) / TB, splits);
+    return fma_dispatch(1, 0, 0, KIND_PRED, lanes, a, grid,
+                        static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// Resident blocks per SM of one FMA variant (kind 0 kernel 1, 1 kernel 1b,
+// 2 kernel 2) at `lanes` column lanes, into *blocks; returns the CUDA error.
+int nbody_fma_blocks_per_sm(int with_jerk, int with_pot, int sep_pot,
+                            int kind, int lanes, int* blocks)
+{
+    const FmaArgs a{};
+    return fma_dispatch(with_jerk, with_pot, sep_pot, kind, lanes, a, dim3(1),
+                        nullptr, blocks);
 }
 
 // Kernel 1, matmul reduction. pot_mode: 0 none, 1 explicit at eps2, 2
 // explicit at pot_eps2, 3 through the product. splits column splits of
 // cols_per_split (whole tiles) each; with splits > 1, partial holds
-// [splits, B, 17] floats and counters one zeroed int per row block (every
-// launch leaves them zero). One launch; returns its cudaGetLastError().
+// [splits, B, 17] floats and counters as for kernel 1. One launch;
+// returns its cudaGetLastError().
 int nbody_rows_mma_launch(
     const float* rows_pos, const float* rows_vel, const int* row_ids, int b,
     const float* pos, const float* vel, const float* mass, int n,

@@ -1,21 +1,24 @@
-// The FMA-body pair sweep shared by kernel 3 (csrc/tree.cu, the tree's near
-// field) and kernel 1b (csrc/nbody.cu, the block-diagonal group windows):
-// one target row per thread against a tile of source columns staged in
-// shared memory, the seven sums of a row
+// The FMA-body pair sweep shared by every FMA body: kernels 1, 1b and 2
+// (csrc/nbody.cu: the direct sweep, its group windows, the predicted
+// columns) and kernel 3 (csrc/tree.cu, the tree's near field). One target
+// row per thread against a tile of source columns staged in shared memory,
+// the seven sums of a row
 //     acc  = sum_j m_j dx / r^3
 //     jerk = sum_j m_j [dv / r^3 - 3 (dx.dv) dx / r^5]
 //     pot  = -sum_j m_j / r   (optionally softened by a separate pot_eps2)
 // left unscaled by G (the callers scale once, at the end).
 //
-// What the restaging does, each element measured on an H100 in the
-// matmul bodies of nbody.cu first:
+// What the staging and the loop do, each element measured on an H100 in
+// the matmul bodies of nbody.cu first:
 //   * columns are staged as packed float4 (x, y, z, m) and (vx, vy, vz, -):
 //     one 16-byte broadcast shared load per column and operand, not four;
 //   * the next tile is copied by cp.async while the current one is swept
 //     (the callers double-buffer; stage_column_async issues the copies);
 //   * 1 / sqrt is the SFU's rsqrt.approx.ftz without rsqrtf's subnormal
-//     fix-up: its argument is d2 plus a softening, and the callers pass
-//     softenings of at least 1e-30, so it is never subnormal;
+//     fix-up: its argument is d2 plus a softening. The callers pass
+//     softenings of at least 1e-30 except kernel 1 at eps2 = 0 (a
+//     `softening=0` run), where a distinct pair closer than ~1e-19 pc has
+//     a subnormal d2 and gets inf (rsqrtf gave a huge finite value);
 //   * the self / padding / group select runs only in tiles that can hold
 //     a masked pair (MASKED); every other tile runs unmasked. Masks are
 //     selects, never products with 0 (0 * inf = NaN);
@@ -40,7 +43,7 @@ namespace pair_fma {
 constexpr int TILE = 256;
 
 // 1 / sqrt(x) on the SFU without the subnormal-input fix-up rsqrtf
-// carries: x is d2 + a softening >= 1e-30, never subnormal
+// carries: x is d2 + a softening, subnormal only at a softening of 0
 __device__ __forceinline__ float rsqrt_ftz(float x)
 {
     float y;
@@ -97,12 +100,12 @@ struct Sums {
     float ax, ay, az, jx, jy, jz, pot;
 };
 
-// One tile of `ncols` staged columns against this thread's row, added to
-// `s` as one tile sum. MASKED keeps only the columns k with
-// k_lo <= k < k_hi and k != k_self (tile-local indices); unmasked tiles
+// The staged columns k0 <= k < k1 of a tile against this thread's row,
+// added to `s` as one tile sum. MASKED keeps only the columns k with
+// k_lo <= k < k_hi and k != k_self (tile-local indices); unmasked spans
 // keep every column.
 template <bool WITH_JERK, bool WITH_POT, bool SEP_POT, bool MASKED>
-__device__ __forceinline__ void sweep_tile(const Tile& t, int ncols,
+__device__ __forceinline__ void sweep_span(const Tile& t, int k0, int k1,
                                            const Row& r, int k_lo, int k_hi,
                                            int k_self, float eps2,
                                            float pot_eps2, Sums& s)
@@ -111,7 +114,7 @@ __device__ __forceinline__ void sweep_tile(const Tile& t, int ncols,
     float jx = 0.f, jy = 0.f, jz = 0.f;
     float pt = 0.f;
 #pragma unroll 8
-    for (int k = 0; k < ncols; ++k) {
+    for (int k = k0; k < k1; ++k) {
         const float4 p = t.pm[k];
         const float dx = p.x - r.x;
         const float dy = p.y - r.y;
@@ -157,6 +160,18 @@ __device__ __forceinline__ void sweep_tile(const Tile& t, int ncols,
     s.ax += ax; s.ay += ay; s.az += az;
     s.jx += jx; s.jy += jy; s.jz += jz;
     s.pot += pt;
+}
+
+// sweep_span over a tile's first `ncols` columns
+template <bool WITH_JERK, bool WITH_POT, bool SEP_POT, bool MASKED>
+__device__ __forceinline__ void sweep_tile(const Tile& t, int ncols,
+                                           const Row& r, int k_lo, int k_hi,
+                                           int k_self, float eps2,
+                                           float pot_eps2, Sums& s)
+{
+    sweep_span<WITH_JERK, WITH_POT, SEP_POT, MASKED>(t, 0, ncols, r, k_lo,
+                                                     k_hi, k_self, eps2,
+                                                     pot_eps2, s);
 }
 
 }  // namespace pair_fma

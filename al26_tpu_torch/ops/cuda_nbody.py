@@ -26,6 +26,17 @@ plain PyTorch version beside it (`nbody_rows_plain`, `nbody_predcols_plain`),
 the counterpart of Pallas interpret mode. `LAUNCHES` counts the kernel
 launches of each wrapper and nothing else.
 
+The FMA bodies (kernels 1, 1b and 2) sweep on the loop they share with
+the tree's near field (csrc/pair_fma.cuh), and each call is ONE launch:
+the column splits are summed in a fixed order inside the kernel by the
+blocks that finish last, through the zeroed ticket buffer per device the
+matmul bodies use too (`_counters`). Kernels 1 and 2 take their splits
+and column lanes from `fma_plan` (whole tiles, at least two a block,
+whole waves of the variant's resident blocks, enough resident warps for a
+few hundred rows); kernel 1b its splits from `_splits`. `rows_launcher`
+and `predcols_launcher` prepare a launch's outputs, scratch and ctypes
+arguments once (a timer calls the launch many times).
+
 The matmul reduction of kernels 1 and 2 (`use_mxu=True`, the JAX
 package's default and so the port's) is a third and fourth kernel in the
 same source, launched by the same wrappers: `nbody_rows(..., use_mxu=True)`
@@ -37,10 +48,9 @@ versions perform the same decomposition in torch, in the input dtype
 (`nbody_rows_plain(..., use_mxu=True)`, `nbody_predcols_plain(...,
 use_mxu=True)`). As in the JAX package the mode is forced off under
 group windows (`group_size > 0`, the entry points below). Each matmul
-call is ONE launch: the column splits of `mma_plan` (whole tiles, filling
-whole waves of the card's resident blocks) are summed in a fixed order
-inside the kernel by the blocks that finish last, through a zeroed ticket
-buffer per device that every launch leaves zeroed. `rows_mma_launcher`
+call is ONE launch: the column splits of `split_plan` (whole tiles,
+filling whole waves of the card's resident blocks) are summed in a fixed
+order inside the kernel, as the FMA bodies' are. `rows_mma_launcher`
 and `PredcolsMma` prepare a launch's outputs, scratch and ctypes
 arguments; `make_pred_force_rows` makes its PredcolsMma once per step, so
 a substep's `rows_at` checks its rows and makes one ctypes call.
@@ -67,23 +77,34 @@ LAUNCHES = {"nbody_rows": 0, "nbody_rows_group": 0, "nbody_predcols": 0,
 # must match TB / TJ in csrc/nbody.cu: rows per block, columns per tile
 _TB = 128
 _TJ = 256
-# the FMA bodies' column splits are chosen so a launch has at least this
-# many blocks (4 per SM of an H100); the matmul bodies' by mma_plan
+# kernel 1b's column splits (_splits) are chosen so a launch has at least
+# this many blocks (4 per SM of an H100); kernels 1, 2 and the matmul
+# bodies' by split_plan
 _TARGET_BLOCKS = 4 * 132
+# the FMA bodies' kinds (csrc/nbody.cu KIND_*): kernel 1, 1b, 2
+KIND_ROWS, KIND_GROUP, KIND_PRED = 0, 1, 2
+# column lanes a row the FMA bodies of kernels 1 and 2 may take (a block
+# is 128 rows x lanes threads), and the resident warps an SM that fma_plan
+# asks of the fewest lanes (two lanes were never the fastest at a path's
+# shape on an H100, PERF.md)
+_FMA_LANES = (1, 4)
+_FMA_MIN_WARPS = 16
 # plain versions: rows per chunk so a [rows, N] temporary stays <= 2^22
 _PLAIN_CHUNK_ELEMS = 1 << 22
 # sums per row of the matmul sweep's partials (Sw[8], Sws[8], explicit pot)
 _NS_MMA = 17
-# the matmul bodies' column splits: at least this many whole tiles a block
-# where N allows (2 measured fastest for kernel 2 at K = 256, N = 32768 on
-# an H100: 1 and 4 were slower, PERF.md), and a split count whose makespan
+# column splits (split_plan): at least this many whole tiles a block where
+# N allows (2 measured fastest for kernel 2c at K = 256, N = 32768 on an
+# H100: 1 and 4 were slower, PERF.md), and a split count whose makespan
 # (waves x tiles a block) is within this factor of the best, the fewest
 # such splits
-_MMA_MIN_TILES = 2
-_MMA_SLACK = 1.05
+_MIN_TILES = 2
+_PLAN_SLACK = 1.05
 # must match RED_GROUP in csrc/nbody.cu: splits summed by one block before
 # the final sum over the groups
 _RED_GROUP = 16
+# partial sums a row of the FMA bodies (acc, jerk, pot)
+_NSUM = 7
 # potential modes of the matmul sweep (csrc/nbody.cu POT_*)
 POT_NONE, POT_EXPLICIT, POT_SEPARATE, POT_PRODUCT = 0, 1, 2, 3
 
@@ -114,7 +135,8 @@ def load():
         p, p, p, i,           # pos, vel, mass, n
         f, f, f,              # eps2, pot_eps2, g
         i, i, i, i,           # with_jerk, with_pot, sep_pot, group_size
-        p, i,                 # partial, splits
+        p, p, i, i, i,        # partial, counters, splits, cols_per_split,
+                              # lanes
         p, p, p, p,           # acc, jerk, pot, stream
     ]
     lib.nbody_rows_launch.restype = i
@@ -122,10 +144,14 @@ def load():
         p, p, p, i,           # rows_pos, rows_vel, row_ids, b
         p, p, p, p, p, i,     # pos0, vel0, acc0, jerk0, mass, n
         p, f, f,              # tau, eps2, g
-        p, i,                 # partial, splits
+        p, p, i, i, i,        # partial, counters, splits, cols_per_split,
+                              # lanes
         p, p, p,              # acc, jerk, stream
     ]
     lib.nbody_predcols_launch.restype = i
+    lib.nbody_fma_blocks_per_sm.argtypes = [i, i, i, i, i,
+                                            ctypes.POINTER(i)]
+    lib.nbody_fma_blocks_per_sm.restype = i
     lib.nbody_rows_mma_launch.argtypes = [
         p, p, p, i,           # rows_pos, rows_vel, row_ids, b
         p, p, p, i,           # pos, vel, mass, n
@@ -150,11 +176,11 @@ def load():
 
 
 def _splits(b: int, n: int, group_size: int = 0) -> int:
-    """Column splits: enough blocks to fill the card when the row count is
-    small (fast-group calls), never more splits than column tiles. With
-    group windows the splits divide a block's window: in a full sweep
-    (contiguous rows) at most ceil((TB - 1) / gs) + 1 groups, while a row
-    subset may scatter over all of [0, n) (the fast group)."""
+    """Kernel 1b's column splits: enough blocks to fill the card when the
+    row count is small (fast-group calls), never more splits than column
+    tiles. The splits divide a block's window: in a full sweep (contiguous
+    rows) at most ceil((TB - 1) / gs) + 1 groups, while a row subset may
+    scatter over all of [0, n) (the fast group)."""
     if group_size > 0 and b >= n:
         n = min(n, (-(-(_TB - 1) // group_size) + 1) * group_size)
     row_blocks = -(-b // _TB)
@@ -163,29 +189,86 @@ def _splits(b: int, n: int, group_size: int = 0) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def mma_plan(b: int, n: int, slots: int) -> Tuple[int, int]:
-    """(splits, tiles per split) of a matmul-body launch of b rows against
-    n columns on a card that holds `slots` blocks at once (SMs x resident
-    blocks per SM). Each split is a run of whole TJ-column tiles from
-    [0, n), so only the last split can end in a ragged tile. A block walks
-    at least _MMA_MIN_TILES tiles where n allows (the sums it writes and
-    the ordered reduction are paid once per block), and never more splits
-    than tiles. Among those, the split counts whose makespan, waves of
-    `slots` blocks x tiles a block, is within _MMA_SLACK of the least; of
-    them the fewest splits (the least scratch and reduction)."""
+def split_plan(b: int, n: int, slots: int) -> Tuple[int, int]:
+    """(splits, tiles per split) of a launch of b rows against n columns
+    (a matmul body, or kernel 1 or 2's FMA body) on a card that holds
+    `slots` blocks at once (SMs x resident blocks per SM). Each split is a
+    run of whole TJ-column tiles from [0, n), so only the last split can
+    end in a ragged tile. A block walks at least _MIN_TILES tiles where n
+    allows (the sums it writes and the ordered reduction are paid once per
+    block, and the double buffer has a tile to overlap), and never more
+    splits than tiles. Among those, the split counts whose makespan, waves
+    of `slots` blocks x tiles a block, is within _PLAN_SLACK of the least;
+    of them the fewest splits (the least scratch and reduction)."""
     row_blocks = -(-b // _TB)
     tiles = max(1, -(-n // _TJ))
     plans = []
-    for s in range(1, max(1, tiles // min(_MMA_MIN_TILES, tiles)) + 1):
+    for s in range(1, max(1, tiles // min(_MIN_TILES, tiles)) + 1):
         per = -(-tiles // s)
         splits = -(-tiles // per)
         plans.append((-(-row_blocks * splits // slots) * per, splits, per))
     best = min(p[0] for p in plans)
     return min((splits, per) for span, splits, per in plans
-               if span <= _MMA_SLACK * best)
+               if span <= _PLAN_SLACK * best)
+
+
+@functools.lru_cache(maxsize=None)
+def fma_plan(b: int, n: int, sms: int,
+             blocks_per_sm: Tuple[int, ...]) -> Tuple[int, int, int]:
+    """(lanes, splits, tiles per split) of kernel 1 or 2's FMA body: b
+    rows against n columns on a card of `sms` SMs that holds
+    blocks_per_sm[i] blocks of _FMA_LANES[i] column lanes an SM. Each lane
+    count's splits are split_plan's at its own slots; a block of l lanes
+    has 4 l warps. The lanes: the fewest whose plan keeps at least
+    _FMA_MIN_WARPS warps resident an SM over its first wave (a fast group
+    of 256 rows is 2 row blocks: one lane leaves 4 warps an SM), else the
+    count that keeps the most."""
+    row_blocks = -(-b // _TB)
+    best = None
+    for count, bpsm in zip(_FMA_LANES, blocks_per_sm):
+        splits, per = split_plan(b, n, sms * bpsm)
+        warps = min(row_blocks * splits / sms, bpsm) * 4 * count
+        if warps >= _FMA_MIN_WARPS:
+            return count, splits, per
+        if best is None or warps > best[0]:
+            best = (warps, count, splits, per)
+    return best[1:]
 
 
 _SLOTS = {}
+_FMA_BLOCKS = {}
+
+
+def _fma_blocks_per_sm(device: torch.device, with_jerk: bool,
+                       with_pot: bool, sep_pot: bool,
+                       kind: int) -> Tuple[int, ...]:
+    """Resident blocks an SM of one FMA variant at each of _FMA_LANES (the
+    library's occupancy query), once per variant and device."""
+    key = (device.index, bool(with_jerk), bool(with_pot), bool(sep_pot),
+           kind)
+    if key not in _FMA_BLOCKS:
+        got = []
+        for lanes in _FMA_LANES:
+            blocks = ctypes.c_int(0)
+            err = load().nbody_fma_blocks_per_sm(
+                int(with_jerk), int(with_pot), int(sep_pot), kind, lanes,
+                ctypes.byref(blocks))
+            if err != 0 or blocks.value < 1:
+                raise RuntimeError(f"the FMA body's occupancy query failed: "
+                                   f"cudaError {err}, {blocks.value} blocks")
+            got.append(blocks.value)
+        _FMA_BLOCKS[key] = tuple(got)
+    return _FMA_BLOCKS[key]
+
+
+def fma_plan_of(b: int, n: int, device: torch.device, with_jerk: bool,
+                with_pot: bool, sep_pot: bool,
+                kind: int) -> Tuple[int, int, int]:
+    """fma_plan on `device` for one variant of kernel 1 (KIND_ROWS) or 2
+    (KIND_PRED)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return fma_plan(b, n, sms, _fma_blocks_per_sm(device, with_jerk,
+                                                  with_pot, sep_pot, kind))
 
 
 def _mma_slots(device: torch.device, with_jerk: bool, pot: int,
@@ -209,10 +292,11 @@ _COUNTERS = {}
 
 
 def _counters(device: torch.device, count: int) -> torch.Tensor:
-    """The matmul bodies' split tickets (int32), zero between launches:
-    the block that takes a counter's last ticket resets it, so one zeroed
-    buffer per device serves every launch in stream order (grown, zeroed,
-    when a launch needs more)."""
+    """The split tickets of every kernel-1 and -2 body (int32), zero
+    between launches: the block that takes a counter's last ticket resets
+    it, so one zeroed buffer per device serves every launch in stream order
+    (grown, zeroed, when a launch needs more). A launch on another stream
+    while one is in flight would race on it."""
     got = _COUNTERS.get(device.index)
     if got is None or got.numel() < count:
         got = _COUNTERS[device.index] = torch.zeros(
@@ -224,15 +308,36 @@ def _mma_scratch(device, b: int, n: int, with_jerk: bool, pot: int,
                  pred: bool):
     """(partial or None, counters or None, splits, cols per split) of a
     matmul launch of b rows against n columns (b, n > 0)."""
-    splits, per = mma_plan(b, n, _mma_slots(device, with_jerk, pot, pred))
+    splits, per = split_plan(b, n, _mma_slots(device, with_jerk, pot, pred))
+    return (*_split_scratch(device, b, splits, _NS_MMA), splits, per * _TJ)
+
+
+def _split_scratch(device, b: int, splits: int, nsum: int):
+    """(partial [splits, b, nsum], counters) of a launch of `splits`
+    column splits, (None, None) for one split."""
     if splits == 1:
-        return None, None, 1, per * _TJ
-    partial = torch.empty((splits, b, _NS_MMA), dtype=torch.float32,
+        return None, None
+    partial = torch.empty((splits, b, nsum), dtype=torch.float32,
                           device=device)
     # per row block: a ticket per group of _RED_GROUP splits, and one for
     # the groups
     tickets = -(-b // _TB) * (-(-splits // _RED_GROUP) + 1)
-    return partial, _counters(device, tickets), splits, per * _TJ
+    return partial, _counters(device, tickets)
+
+
+def _fma_scratch(device, b: int, n: int, with_jerk: bool, with_pot: bool,
+                 sep_pot: bool, group_size: int = 0, pred: bool = False):
+    """(partial or None, counters or None, splits, cols per split, lanes)
+    of an FMA-body launch of b rows against n columns (b, n > 0): kernel 1b
+    (group_size > 0) by _splits, one lane; kernels 1 and 2 by fma_plan."""
+    if group_size > 0:
+        splits, cps, lanes = _splits(b, n, group_size), 0, 1
+    else:
+        kind = KIND_PRED if pred else KIND_ROWS
+        lanes, splits, per = fma_plan_of(b, n, device, with_jerk, with_pot,
+                                         sep_pot, kind)
+        cps = per * _TJ
+    return (*_split_scratch(device, b, splits, _NSUM), splits, cps, lanes)
 
 
 def _ptr(t) -> int:
@@ -558,17 +663,18 @@ def rows_launcher(pos_rows, vel_rows, row_ids, pos, vel, mass, eps2: float,
                   group_size: int = 0):
     """One launch of kernel 1's FMA body (group_size > 0: kernel 1b, the
     group windows) on checked CUDA tensors (B, N > 0): outputs, the split
-    partials and the ctypes arguments made here, once. Returns
-    (launch, (acc, jerk, pot)): launch() issues the sweep and its ordered
-    split sum on the current stream through one ctypes call and returns
-    the CUDA error. nbody_rows calls it once; a timer may call launch()
-    many times, rewriting the same outputs."""
+    scratch and the ctypes arguments made here, once. Returns
+    (launch, (acc, jerk, pot)): launch() issues the sweep with its ordered
+    split sum (one kernel) on the current stream through one ctypes call
+    and returns the CUDA error. nbody_rows calls it once; a timer may call
+    launch() many times, rewriting the same outputs."""
     b, n, device = pos_rows.shape[0], pos.shape[0], pos.device
+    group_size = max(int(group_size), 0)
     acc = torch.empty((b, 3), dtype=torch.float32, device=device)
     jerk = torch.empty_like(acc)
     pot = torch.empty((b,), dtype=torch.float32, device=device)
-    splits = _splits(b, n, group_size)
-    partial = torch.empty((splits, b, 7), dtype=torch.float32, device=device)
+    partial, counters, splits, cps, lanes = _fma_scratch(
+        device, b, n, with_jerk, with_pot, pot_eps2 is not None, group_size)
     fn = load().nbody_rows_launch
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -576,11 +682,11 @@ def rows_launcher(pos_rows, vel_rows, row_ids, pos, vel, mass, eps2: float,
             pos.data_ptr(), vel.data_ptr(), mass.data_ptr(), n, float(eps2),
             float(0.0 if pot_eps2 is None else pot_eps2), float(g),
             int(with_jerk), int(with_pot), int(pot_eps2 is not None),
-            max(int(group_size), 0), partial.data_ptr(), splits,
+            group_size, _ptr(partial), _ptr(counters), splits, cps, lanes,
             acc.data_ptr(), jerk.data_ptr(), pot.data_ptr(), stream)
 
     def launch(_keep=(pos_rows, vel_rows, row_ids, pos, vel, mass,
-                      partial, acc, jerk, pot)):
+                      partial, counters, acc, jerk, pot)):
         return fn(*args)
 
     return launch, (acc, jerk, pot)
@@ -612,26 +718,44 @@ def nbody_predcols(pos_rows, vel_rows, row_ids, pos0, vel0, a0, j0, mass,
     if use_mxu:
         return PredcolsMma(pos0, vel0, a0, j0, mass, eps2, g, centre)(
             pos_rows, vel_rows, row_ids, tau)
+    if b == 0 or n == 0:
+        acc = torch.zeros((b, 3), dtype=torch.float32, device=device)
+        return acc, torch.zeros_like(acc)
+    launch, out = predcols_launcher(pos_rows, vel_rows, row_ids, pos0, vel0,
+                                    a0, j0, mass, tau.reshape(()), eps2, g)
+    _count(launch(), "nbody_predcols")
+    return out
+
+
+def predcols_launcher(pos_rows, vel_rows, row_ids, pos0, vel0, a0, j0, mass,
+                      tau: torch.Tensor, eps2: float, g: float = G_INTERNAL):
+    """One launch of kernel 2's FMA body on checked CUDA tensors (K, N > 0;
+    tau one f32 element): outputs, the split scratch and the ctypes
+    arguments made here, once. Returns (launch, (acc, jerk)): launch()
+    issues the kernel (the sweep and its ordered split sum) on the current
+    stream through one ctypes call and returns the CUDA error.
+    nbody_predcols calls it once; a timer may call launch() many times,
+    rewriting the same outputs."""
+    b, n, device = pos_rows.shape[0], pos0.shape[0], pos0.device
+    tau = tau.contiguous()
     acc = torch.empty((b, 3), dtype=torch.float32, device=device)
     jerk = torch.empty_like(acc)
-    if b == 0:
-        return acc, jerk
-    if n == 0:
-        return acc.zero_(), jerk.zero_()
-    tau = tau.reshape(()).contiguous()
-    lib = load()
-    splits = _splits(b, n)
-    partial = torch.empty((splits, b, 7), dtype=torch.float32, device=device)
+    partial, counters, splits, cps, lanes = _fma_scratch(
+        device, b, n, True, False, False, pred=True)
+    fn = load().nbody_predcols_launch
     with torch.cuda.device(device):
-        err = lib.nbody_predcols_launch(
-            pos_rows.data_ptr(), vel_rows.data_ptr(), row_ids.data_ptr(),
-            b, pos0.data_ptr(), vel0.data_ptr(), a0.data_ptr(),
-            j0.data_ptr(), mass.data_ptr(), n, tau.data_ptr(),
-            float(eps2), float(g), partial.data_ptr(), splits,
-            acc.data_ptr(), jerk.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    _count(err, "nbody_predcols")
-    return acc, jerk
+        stream = torch.cuda.current_stream(device).cuda_stream
+    args = (pos_rows.data_ptr(), vel_rows.data_ptr(), row_ids.data_ptr(), b,
+            pos0.data_ptr(), vel0.data_ptr(), a0.data_ptr(), j0.data_ptr(),
+            mass.data_ptr(), n, tau.data_ptr(), float(eps2), float(g),
+            _ptr(partial), _ptr(counters), splits, cps, lanes,
+            acc.data_ptr(), jerk.data_ptr(), stream)
+
+    def launch(_keep=(pos_rows, vel_rows, row_ids, pos0, vel0, a0, j0, mass,
+                      tau, partial, counters, acc, jerk)):
+        return fn(*args)
+
+    return launch, (acc, jerk)
 
 
 def _count(err: int, key: str) -> None:
@@ -733,7 +857,9 @@ class PredcolsMma:
     def launcher(self, pos_rows, vel_rows, row_ids, tau):
         """(launch, (acc, jerk)) of one call: the rows and tau (one f32
         element) checked, fresh outputs, the ctypes arguments; launch()
-        issues the kernel and returns the CUDA error (B, N > 0)."""
+        issues the kernel and returns the CUDA error (B, N > 0). launch
+        holds this plan (its columns, centre and scratch), so it may
+        outlive every other reference to the plan."""
         self._check_rows(pos_rows, vel_rows, row_ids, tau)
         b = pos_rows.shape[0]
         # one allocation for both outputs (each costs ~10 us of host time
@@ -747,7 +873,7 @@ class PredcolsMma:
                 jerk.data_ptr(), self._stream)
         fn = self._fn
 
-        def launch(_keep=(pos_rows, vel_rows, row_ids, tau)):
+        def launch(_keep=(self, pos_rows, vel_rows, row_ids, tau)):
             return fn(*args)
 
         return launch, (acc, jerk)

@@ -12,13 +12,18 @@ Phases, one result line each (any failure exits non-zero):
               count, which give the SFU's rsqrt rate of the bounds;
   2. build    nvcc builds csrc/nbody.cu and csrc/tree.cu from this checkout,
               one nvcc each, started together (timed; the ptxas lines);
-  3. kernels  each kernel against its plain PyTorch version at N = 32768 on
-              a Plummer cluster from init_cluster: kernel 1 (nbody_rows) on
-              the full sweep (jerk + raw potential), the leapfrog sweep (no
-              jerk) and 256 scattered rows, held to 1e-5 of the max of the
-              f64 plain result; kernel 2 (nbody_predcols) with K = 256 at a
-              nonzero tau, held to 2e-5. Median times beside the plain
-              f32 versions' (CUDA events, after warm-up);
+  3. kernels  kernels 1 and 2's FMA bodies against their f64 plain
+              versions on Plummer clusters from init_cluster: kernel 1
+              (nbody_rows) at N = 32768 on the full sweep (jerk + raw
+              potential), the leapfrog sweep (no jerk) and 256 scattered
+              rows, and at n = 8192 (the hermite4 path's size) on the full
+              sweep and a substep's jerk-only sweep, held to 1e-5 of the
+              max; kernel 2 (nbody_predcols) with
+              K = 256 at a nonzero tau, held to 2e-5; the same bits on a
+              repeat. Device-only times (CUDA events around 20-50
+              back-to-back launches of the bare launchers, one launch a
+              call) beside the matmul bodies' at the same shapes, the
+              bounds, and the f32 plain versions' times;
   4. parity   the slice at n = 2048, f32, force_impl="pallas",
               hermite4_block, k_fast = 64, 3 steps: the port on the card
               against the port on the CPU (plain versions), same initial
@@ -59,7 +64,9 @@ The Barnes-Hut tier (force_impl="tree", fractal ICs), run in this order:
               live tree, as in phase 3b, with its device time and bound
               there, which the kernels line carries; kernel 2 at K = k_fast
               against all N columns, kernel 1's eps2 = 1e-30 virial sweep
-              on a row subset; bars as in phases 3 and 3b), a breakdown of
+              on a row subset; bars as in phases 3 and 3b; kernels 1 and 2
+              also twice (the same bits) and timed there as in phase 3,
+              which the kernels line carries), a breakdown of
               one tree sweep, and the physics invariants; then
               tree_mac="relative" at N = 131072 for 5 steps (exact kernel-1
               seeding sweep). Kernel 2c there (K = 512) also twice (the
@@ -126,8 +133,10 @@ The run order: 1, 2, 3, 3d, 3b, 3c, 4, 4d, 4b, 4c, 5, 5b, 5c, 6, 6b, 6c.
 
 Then one JSON line with every kernel's launches (kernels 1-3 from phase 5b,
 the windowed kernel from the 64 x 1000 run of phase 5c, the matmul kernels
-from phase 6b), error (the largest of its comparisons), times (the matmul
-bodies: device-only `ms` and the wrapper's `host_ms`), and the least time
+from phase 6b), error (the largest of its comparisons), times (device-only
+`ms`; kernels 1-3 at the tree slice's shapes, kernels 1 and 2 with the
+matmul body's `mma_ms` there; the matmul bodies also the wrapper's
+`host_ms`), and the least time
 the card could take for the same work: bound_ms, the largest of the FP32
 operations over the FP32 rate, the rsqrt a pair (two with a separately
 softened potential) over the SFU rate (16 a clock per SM at the maximum
@@ -475,9 +484,28 @@ def phase_build():
           ptxas=ptxas)
 
 
+def _fma_times(fma, mma, reps: int, warmup: int = 3) -> dict:
+    """Device-only ms of an FMA body's bare launcher (`ms`) and of the
+    matmul body's at the same shape (`mma_ms`), each _device_ms."""
+    return {"ms": _device_ms(fma, reps, warmup),
+            "mma_ms": _device_ms(mma, reps, warmup)}
+
+
+def _same_bits(fn) -> bool:
+    """Two calls of `fn` (a wrapper call) give the same bits."""
+    import torch
+
+    got, again = fn(), fn()
+    return all(torch.equal(x, y) for x, y in zip(got, again))
+
+
 def phase_kernels():
-    """Each kernel against its plain version at N_KERNEL; returns the
-    per-kernel records of the final JSON line (launches filled later)."""
+    """Kernels 1 and 2's FMA bodies against their f64 plain versions at
+    N_KERNEL (and kernel 1 at n = 8192, the hermite4 path's size), the same
+    bits on a repeat, and their device-only times (bare launchers, events
+    around back-to-back launches) beside the matmul bodies' at the same
+    shapes and the f32 plain versions'; returns the per-kernel records of
+    the final JSON line (shape, times and launches filled from phase 5b)."""
     import numpy as np
     import torch
 
@@ -486,103 +514,117 @@ def phase_kernels():
     from al26_tpu_torch.sim import init_cluster
 
     dev = torch.device("cuda")
-    cfg = SimConfig(n=N_KERNEL, rc=1.0, seed=7, dtype="f32")
-    state, _, cfg = init_cluster(cfg, device=dev)
-    c = state.cluster
-    pos, vel, mass = c.pos, c.vel, c.mass
-    eps2 = cfg.eps2
-    ids = torch.arange(N_KERNEL, dtype=torch.int32, device=dev)
     d = lambda t: t.double()
+    errs, abs_err, times, same = {}, {}, {}, {}
 
-    # kernel 1: full sweep, jerk + raw potential (the fused opening sweep)
-    a, j, p = cn.nbody_rows(pos, vel, ids, pos, vel, mass, eps2,
-                            pot_eps2=1e-30)
-    ar, jr, pr = cn.nbody_rows_plain(d(pos), d(vel), ids, d(pos), d(vel),
-                                     d(mass), eps2, pot_eps2=1e-30)
-    errs = {"acc": _rel_err(a, ar), "jerk": _rel_err(j, jr),
-            "pot": _rel_err(p, pr)}
-    abs_err = max(_abs_err(a, ar), _abs_err(j, jr), _abs_err(p, pr))
-    # leapfrog sweep: acceleration only
-    a_lf, _, _ = cn.nbody_rows(pos, vel, ids, pos, vel, mass, eps2,
-                               with_jerk=False, with_pot=False)
-    errs["leapfrog_acc"] = _rel_err(a_lf, ar)
-    # 256 scattered rows (the fast-group row sweep)
-    rng = np.random.default_rng(3)
-    sel = torch.as_tensor(rng.choice(N_KERNEL, 256, replace=False),
-                          dtype=torch.int32, device=dev)
-    rp, rv = pos[sel].contiguous(), vel[sel].contiguous()
-    a_r, j_r, _ = cn.nbody_rows(rp, rv, sel, pos, vel, mass, eps2,
-                                with_pot=False)
-    ar_r, jr_r, _ = cn.nbody_rows_plain(d(rp), d(rv), sel, d(pos), d(vel),
-                                        d(mass), eps2, with_pot=False)
-    errs["rows256_acc"] = _rel_err(a_r, ar_r)
-    errs["rows256_jerk"] = _rel_err(j_r, jr_r)
-    abs_err = max(abs_err, _abs_err(a_r, ar_r), _abs_err(j_r, jr_r))
+    def hold(name, got, ref, kernel):
+        for k, (g, r) in enumerate(zip(got, ref)):
+            errs[f"{name}_{('acc', 'jerk', 'pot')[k]}"] = _rel_err(g, r)
+            abs_err[kernel] = max(abs_err.get(kernel, 0.0), _abs_err(g, r))
+
+    for n in (N_KERNEL, 8192):
+        cfg = SimConfig(n=n, rc=1.0, seed=7, dtype="f32")
+        state, _, cfg = init_cluster(cfg, device=dev)
+        c = state.cluster
+        pos, vel, mass, eps2 = c.pos, c.vel, c.mass, cfg.eps2
+        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        # the fused opening / closing sweep: jerk + raw potential
+        full = dict(pot_eps2=1e-30)
+        sweep = lambda **kw: cn.nbody_rows(pos, vel, ids, pos, vel, mass,
+                                           eps2, **kw)
+        a, j, p = sweep(**full)
+        ref = cn.nbody_rows_plain(d(pos), d(vel), ids, d(pos), d(vel),
+                                  d(mass), eps2, **full)
+        hold(f"full{n}", (a, j, p), ref, "nbody_rows")
+        same[f"full{n}"] = _same_bits(lambda: sweep(**full))
+        reps = 20 if n == N_KERNEL else 50
+        times[f"full{n}"] = _fma_times(
+            cn.rows_launcher(pos, vel, ids, pos, vel, mass, eps2, **full)[0],
+            cn.rows_mma_launcher(pos, vel, ids, pos, vel, mass, eps2,
+                                 **full)[0], reps)
+        times[f"full{n}"].update(_bound(n * (n - 1), True,
+                                        _rows_bytes(n, n, True, True),
+                                        rsqrt=2))
+        if n != N_KERNEL:
+            # a hermite4 substep's force evaluation: jerk, no potential
+            force = dict(with_pot=False)
+            a_f, j_f, _ = sweep(**force)
+            hold(f"force{n}", (a_f, j_f), ref[:2], "nbody_rows")
+            times[f"force{n}"] = _fma_times(
+                cn.rows_launcher(pos, vel, ids, pos, vel, mass, eps2,
+                                 **force)[0],
+                cn.rows_mma_launcher(pos, vel, ids, pos, vel, mass, eps2,
+                                     **force)[0], reps)
+            continue
+        times[f"full{n}"]["plain_ms"] = _median_ms(
+            lambda: cn.nbody_rows_plain(pos, vel, ids, pos, vel, mass, eps2,
+                                        **full), 3, warmup=1)
+        # the leapfrog sweep: acceleration only
+        lf = dict(with_jerk=False, with_pot=False)
+        hold(f"acc{n}", sweep(**lf)[:1], ref[:1], "nbody_rows")
+        times[f"acc{n}"] = _fma_times(
+            cn.rows_launcher(pos, vel, ids, pos, vel, mass, eps2, **lf)[0],
+            cn.rows_mma_launcher(pos, vel, ids, pos, vel, mass, eps2,
+                                 **lf)[0], reps)
+        # 256 scattered rows (the fast-group row sweep)
+        rng = np.random.default_rng(3)
+        sel = torch.as_tensor(rng.choice(n, 256, replace=False),
+                              dtype=torch.int32, device=dev)
+        rp, rv = pos[sel].contiguous(), vel[sel].contiguous()
+        rows = lambda: cn.nbody_rows(rp, rv, sel, pos, vel, mass, eps2,
+                                     with_pot=False)
+        hold("rows256", rows()[:2],
+             cn.nbody_rows_plain(d(rp), d(rv), sel, d(pos), d(vel), d(mass),
+                                 eps2, with_pot=False)[:2], "nbody_rows")
+        same["rows256"] = _same_bits(rows)
+        times["rows256"] = _fma_times(
+            cn.rows_launcher(rp, rv, sel, pos, vel, mass, eps2,
+                             with_pot=False)[0],
+            cn.rows_mma_launcher(rp, rv, sel, pos, vel, mass, eps2,
+                                 with_pot=False)[0], 50)
+        times["rows256"]["plain_ms"] = _median_ms(
+            lambda: cn.nbody_rows_plain(rp, rv, sel, pos, vel, mass, eps2,
+                                        with_pot=False), 5)
+        # kernel 2: K = 256 fast rows against columns predicted to tau
+        tau = torch.tensor(0.5 * cfg.dt, dtype=torch.float32, device=dev)
+        pf, vf = cn.predict_columns(pos[sel], vel[sel], a[sel], j[sel], tau)
+        pf = (pf + 1e-4 * torch.as_tensor(rng.normal(size=(256, 3)),
+                                          dtype=torch.float32,
+                                          device=dev)).contiguous()
+        vf = vf.contiguous()
+        cols = (pos, vel, a, j, mass)
+        pred = lambda: cn.nbody_predcols(pf, vf, sel, *cols, tau, eps2)
+        hold("pred256", pred(),
+             cn.nbody_predcols_plain(d(pf), d(vf), sel, *map(d, cols),
+                                     d(tau), eps2), "nbody_predcols")
+        same["pred256"] = _same_bits(pred)
+        times["pred256"] = _fma_times(
+            cn.predcols_launcher(pf, vf, sel, *cols, tau, eps2)[0],
+            cn.PredcolsMma(*cols, eps2).launcher(pf, vf, sel, tau)[0], 50)
+        times["pred256"].update(_bound(256 * (n - 1), True,
+                                       52 * 256 + 52 * n + 4))
+        times["pred256"]["plain_ms"] = _median_ms(
+            lambda: cn.nbody_predcols_plain(pf, vf, sel, *cols, tau, eps2),
+            5)
+        del state, c, pos, vel, mass, a, j, p, cols
     torch.cuda.synchronize()
-    bad = {k: v for k, v in errs.items() if not v < KERNEL_TOL}
-    t_k = _median_ms(lambda: cn.nbody_rows(pos, vel, ids, pos, vel, mass,
-                                           eps2, pot_eps2=1e-30), 10)
-    t_p = _median_ms(lambda: cn.nbody_rows_plain(pos, vel, ids, pos, vel,
-                                                 mass, eps2, pot_eps2=1e-30),
-                     3, warmup=1)
-    t_kr = _median_ms(lambda: cn.nbody_rows(rp, rv, sel, pos, vel, mass,
-                                            eps2, with_pot=False), 20)
-    t_pr = _median_ms(lambda: cn.nbody_rows_plain(rp, rv, sel, pos, vel,
-                                                  mass, eps2,
-                                                  with_pot=False), 5)
-    _line("kernel nbody_rows", n=N_KERNEL, eps2=eps2, rel_err=errs,
-          tol=KERNEL_TOL, max_abs_err=abs_err,
-          full_sweep_ms=t_k, full_sweep_plain_ms=t_p,
-          gpairs_per_s=N_KERNEL * N_KERNEL / (t_k * 1e6),
-          rows256_ms=t_kr, rows256_plain_ms=t_pr)
-    if bad:
-        _fail(f"nbody_rows disagrees with its plain version: {bad}")
-    rec_rows = {"name": "nbody_rows", "route": "cuda",
-                "source": "al26_tpu_torch/csrc/nbody.cu",
-                "replaces": "al26_tpu/ops/pallas_nbody.py:78",
-                "launches": 0, "max_abs_err": abs_err, "ms": t_k,
-                "plain_ms": t_p,
-                **_bound(N_KERNEL * (N_KERNEL - 1), True,
-                         _rows_bytes(N_KERNEL, N_KERNEL, True, True),
-                         rsqrt=2),
-                "library_ms": None}
-
-    # kernel 2: K = 256 fast rows against columns predicted to tau
-    a0, j0 = a, j
-    tau = torch.tensor(0.5 * cfg.dt, dtype=torch.float32, device=dev)
-    pf, vf = cn.predict_columns(pos[sel], vel[sel], a0[sel], j0[sel], tau)
-    pf = (pf + 1e-4 * torch.as_tensor(rng.normal(size=(256, 3)),
-                                      dtype=torch.float32,
-                                      device=dev)).contiguous()
-    vf = vf.contiguous()
-    ak, jk = cn.nbody_predcols(pf, vf, sel, pos, vel, a0, j0, mass, tau,
-                               eps2)
-    akr, jkr = cn.nbody_predcols_plain(d(pf), d(vf), sel, d(pos), d(vel),
-                                       d(a0), d(j0), d(mass), d(tau), eps2)
-    errs2 = {"acc": _rel_err(ak, akr), "jerk": _rel_err(jk, jkr)}
-    abs2 = max(_abs_err(ak, akr), _abs_err(jk, jkr))
-    t_k2 = _median_ms(lambda: cn.nbody_predcols(pf, vf, sel, pos, vel, a0,
-                                                j0, mass, tau, eps2), 20)
-    t_p2 = _median_ms(lambda: cn.nbody_predcols_plain(pf, vf, sel, pos, vel,
-                                                      a0, j0, mass, tau,
-                                                      eps2), 5)
-    _line("kernel nbody_predcols", n=N_KERNEL, k=256, tau=float(tau),
-          rel_err=errs2, tol=PREDCOLS_TOL, max_abs_err=abs2, ms=t_k2,
-          plain_ms=t_p2)
-    bad2 = {k: v for k, v in errs2.items() if not v < PREDCOLS_TOL}
-    if bad2:
-        _fail(f"nbody_predcols disagrees with its plain version: {bad2}")
-    # predcols reads the step-start pos, vel, acc, jerk and mass of every
-    # column: 52 bytes each
-    rec_pred = {"name": "nbody_predcols", "route": "cuda",
-                "source": "al26_tpu_torch/csrc/nbody.cu",
-                "replaces": "al26_tpu/ops/pallas_nbody.py:539",
-                "launches": 0, "max_abs_err": abs2, "ms": t_k2,
-                "plain_ms": t_p2,
-                **_bound(256 * (N_KERNEL - 1), True,
-                         256 * (12 + 12 + 4 + 24) + 52 * N_KERNEL + 4),
-                "library_ms": None}
-    return [rec_rows, rec_pred]
+    bars = {k: PREDCOLS_TOL if k.startswith("pred") else KERNEL_TOL
+            for k in errs}
+    _line("kernel fma", n=[N_KERNEL, 8192], rel_err=errs, tol=bars,
+          max_abs_err=abs_err, repeat_same_bits=same, **times,
+          gpairs_per_s=N_KERNEL * N_KERNEL
+          / (times[f"full{N_KERNEL}"]["ms"] * 1e6))
+    bad = {k: v for k, v in errs.items() if not v < bars[k]}
+    if bad or not all(same.values()):
+        _fail(f"kernels 1 / 2 against their plain versions: errors over "
+              f"their bars {bad}, repeat same bits {same}")
+    return [{"name": name, "route": "cuda",
+             "source": "al26_tpu_torch/csrc/nbody.cu",
+             "replaces": replaces, "launches": 0,
+             "max_abs_err": abs_err[name]}
+            for name, replaces in (
+                ("nbody_rows", "al26_tpu/ops/pallas_nbody.py:78"),
+                ("nbody_predcols", "al26_tpu/ops/pallas_nbody.py:539"))]
 
 
 def _mma_timing(launch, wrapper, fma) -> dict:
@@ -1217,7 +1259,10 @@ def _main_path_kernel_checks(state, cache, cfg) -> dict:
       nbody_rows      the fractal virial sum's sweep (eps2 = 1e-30,
                       potential) over all N stars, on 2048 random rows.
 
-    Returns {kernel: {"rel_err": {...}, "max_abs_err": x, "tol": bar}}."""
+    Kernels 1 and 2 (FMA bodies) also: the same bits on a repeat, device-
+    only times beside the matmul body's at the same shape (_fma_times), the
+    f32 plain version's and the bound. Returns {kernel: {"rel_err": {...},
+    "max_abs_err": x, "tol": bar, ...}}."""
     import numpy as np
     import torch
 
@@ -1241,26 +1286,44 @@ def _main_path_kernel_checks(state, cache, cfg) -> dict:
 
     a0, j0 = cache[0], cache[1]
     pf, vf, sel, tau = _fast_rows(c, a0, j0, cfg)
-    got = cn.nbody_predcols(pf, vf, sel, c.pos, c.vel, a0, j0, c.mass, tau,
-                            cfg.eps2)
-    ref = cn.nbody_predcols_plain(d(pf), d(vf), sel, d(c.pos), d(c.vel),
-                                  d(a0), d(j0), d(c.mass), d(tau), cfg.eps2)
-    out["nbody_predcols"] = record(("acc", "jerk"), got, ref, PREDCOLS_TOL,
-                                   k=cfg.k_fast, n=n)
+    cols = (c.pos, c.vel, a0, j0, c.mass)
+    pred = lambda: cn.nbody_predcols(pf, vf, sel, *cols, tau, cfg.eps2)
+    ref = cn.nbody_predcols_plain(d(pf), d(vf), sel, *map(d, cols), d(tau),
+                                  cfg.eps2)
+    k = pf.shape[0]
+    out["nbody_predcols"] = record(
+        ("acc", "jerk"), pred(), ref, PREDCOLS_TOL, k=k, n=n,
+        repeat_same_bits=_same_bits(pred),
+        **_fma_times(cn.predcols_launcher(pf, vf, sel, *cols, tau,
+                                          cfg.eps2)[0],
+                     cn.PredcolsMma(*cols, cfg.eps2).launcher(pf, vf, sel,
+                                                              tau)[0], 50),
+        plain_f32_ms=_median_ms(lambda: cn.nbody_predcols_plain(
+            pf, vf, sel, *cols, tau, cfg.eps2), 3, warmup=1),
+        **_bound(k * (n - 1), True, 52 * k + 52 * n + 4))
     out["nbody_predcols_mma"] = _pred_mma_check(
         pf, vf, sel, c.pos, c.vel, a0, j0, c.mass, tau, cfg.eps2)
 
     zeros = torch.zeros_like(c.pos)
-    a1, _, p1 = cn.kernel_acc_jerk_pot(c.pos, zeros, c.mass, 1e-30,
-                                       with_jerk=False, use_mxu=False)
+    virial = lambda: cn.kernel_acc_jerk_pot(c.pos, zeros, c.mass, 1e-30,
+                                            with_jerk=False, use_mxu=False)
+    a1, _, p1 = virial()
     rows = torch.as_tensor(np.sort(rng.choice(n, 2048, replace=False)),
                            dtype=torch.int32, device=dev)
     ar, _, pr = cn.nbody_rows_plain(d(c.pos[rows]), d(zeros[rows]), rows,
                                     d(c.pos), d(zeros), d(c.mass), 1e-30,
                                     with_jerk=False)
-    out["nbody_rows"] = record(("acc", "pot"), (a1[rows], p1[rows]),
-                               (ar, pr), KERNEL_TOL, rows=2048, n=n,
-                               eps2=1e-30)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    sweep = (c.pos, zeros, ids, c.pos, zeros, c.mass, 1e-30)
+    out["nbody_rows"] = record(
+        ("acc", "pot"), (a1[rows], p1[rows]), (ar, pr), KERNEL_TOL,
+        rows=2048, n=n, eps2=1e-30, repeat_same_bits=_same_bits(virial),
+        **_fma_times(cn.rows_launcher(*sweep, with_jerk=False)[0],
+                     cn.rows_mma_launcher(*sweep, with_jerk=False)[0], 5,
+                     warmup=1),
+        plain_f32_ms=_median_ms(lambda: cn.nbody_rows_plain(
+            *sweep, with_jerk=False), 1, warmup=0),
+        **_bound(n * (n - 1), False, _rows_bytes(n, n, False, True)))
     torch.cuda.synchronize()
     return out
 
@@ -1348,8 +1411,9 @@ def phase_tree_slice():
     for k, rec in kernel_checks.items():
         checks[k + "_matches_plain"] = all(
             v < rec["tol"] for v in rec["rel_err"].values())
-    checks["predcols_mma_repeat_same_bits"] = kernel_checks[
-        "nbody_predcols_mma"]["repeat_same_bits"]
+    for k in ("nbody_rows", "nbody_predcols", "nbody_predcols_mma"):
+        checks[k + "_repeat_same_bits"] = kernel_checks[k][
+            "repeat_same_bits"]
     near = kernel_checks["near_field"]
     checks["near_field_no_overflow"] = not near["overflow"]
     checks["near_field_repeat_same_bits"] = near["repeat_same_bits"]
@@ -1879,16 +1943,17 @@ def main() -> int:
     # launches: kernels 1-3 from the N_TREE tree-tier run, which exercises
     # all three, the error the worst of the kernel phases and that run's
     # shapes; the group window from the 64 x 1000 ensemble
+    # the times and bounds at the tree slice's own shapes (kernels 1 and 2:
+    # the virial sweep, K = k_fast predicted columns; beside the matmul
+    # body's time there)
     for rec in records:
+        chk = checked[rec["name"]]
         rec["launches"] = tree[rec["name"]]
-        rec["max_abs_err"] = max(rec["max_abs_err"],
-                                 checked[rec["name"]]["max_abs_err"])
-        if rec["name"] == "near_field":
-            # the times and bound at the tree slice's own shape
-            near = checked["near_field"]
-            rec.update({"plain_ms": near["plain_f32_ms"],
-                        **{k: near[k] for k in ("ms", "bound_ms",
-                                                "bound_by", "bound_pipe")}})
+        rec["max_abs_err"] = max(rec["max_abs_err"], chk["max_abs_err"])
+        rec.update({"plain_ms": chk["plain_f32_ms"], "library_ms": None,
+                    **{k: chk[k] for k in ("ms", "mma_ms", "bound_ms",
+                                           "bound_by", "bound_pipe")
+                       if k in chk}})
     group["launches"] = ensembles[0]["nbody_rows_group"]
     records.append(group)
     # the matmul bodies: launches from the driver at N_KERNEL (phase 6b),

@@ -129,7 +129,7 @@ def use(lib_path):
     finally:
         cuda_build.build = real
     cn._SLOTS.clear()
-    cn.mma_plan.cache_clear()
+    cn.split_plan.cache_clear()
 
 
 def main() -> int:
@@ -218,19 +218,19 @@ def main() -> int:
         rec["acc32768_ms"] = cs._device_ms(launch)
         for key, sh in shapes.items():
             for tiles in (None, 1, 2, 8):
-                saved = cn._MMA_MIN_TILES
+                saved = cn._MIN_TILES
                 if tiles is not None:
-                    cn._MMA_MIN_TILES = tiles
-                cn.mma_plan.cache_clear()
+                    cn._MIN_TILES = tiles
+                cn.split_plan.cache_clear()
                 plan = cn.PredcolsMma(*sh[3:])
                 launch, _ = plan.launcher(*sh[:3], sh[8])
-                rec[f"{key}_min{tiles or cn._MMA_MIN_TILES}_ms"] = \
+                rec[f"{key}_min{tiles or cn._MIN_TILES}_ms"] = \
                     cs._device_ms(launch)
-                rec[f"{key}_min{tiles or cn._MMA_MIN_TILES}_plan"] = \
-                    cn.mma_plan(sh[0].shape[0], sh[3].shape[0],
+                rec[f"{key}_min{tiles or cn._MIN_TILES}_plan"] = \
+                    cn.split_plan(sh[0].shape[0], sh[3].shape[0],
                                 cn._mma_slots(dev, True, cn.POT_NONE, True))
-                cn._MMA_MIN_TILES = saved
-                cn.mma_plan.cache_clear()
+                cn._MIN_TILES = saved
+                cn.split_plan.cache_clear()
         return rec
 
     order = ["base", *names, *reversed(names), "base"]

@@ -16,6 +16,7 @@ JAX the card test runs alone (tests/conftest.py imports JAX, hence
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m gpu
 """
+import gc
 import os
 from types import SimpleNamespace
 
@@ -302,15 +303,16 @@ def test_wrappers_check_arguments():
     (65536, 65536, 396), (100, 40000, 396), (3, 5, 396), (100, 1, 396),
     (128, 1025, 8), (8192, 8192, 528)])
 def test_mma_plan_covers_columns_in_whole_tiles(b, n, slots):
-    """The matmul bodies' split planner: splits of whole 256-column tiles
-    cover [0, n) exactly once, only the last split ends in a ragged tile,
-    a block walks at least _MMA_MIN_TILES tiles where n has them, and
+    """The split planner of the matmul bodies and of kernels 1 and 2's
+    FMA bodies: splits of whole 256-column tiles cover [0, n) exactly
+    once, only the last split ends in a ragged tile, a block walks at
+    least _MIN_TILES tiles where n has them, and
     there are never more splits than tiles (B below one row block, N
     below one tile and N = 1 included)."""
-    splits, per = cn.mma_plan(b, n, slots)
+    splits, per = cn.split_plan(b, n, slots)
     tiles = -(-n // cn._TJ)
     assert 1 <= splits <= tiles
-    assert per >= min(cn._MMA_MIN_TILES, tiles)
+    assert per >= min(cn._MIN_TILES, tiles)
     cps = per * cn._TJ
     ranges = [(s * cps, min(n, (s + 1) * cps)) for s in range(splits)]
     covered = np.zeros(n, np.int64)
@@ -327,7 +329,50 @@ def test_mma_plan_covers_columns_in_whole_tiles(b, n, slots):
     if splits > 1:
         per1 = -(-tiles // (splits - 1))
         span1 = -(-row_blocks * -(-tiles // per1) // slots) * per1
-        assert span1 > span or per1 < cn._MMA_MIN_TILES
+        assert span1 > span or per1 < cn._MIN_TILES
+
+
+@pytest.mark.parametrize("bpsm", [(8, 2), (6, 1)])
+@pytest.mark.parametrize("b,n", [
+    (256, 32768), (512, 409600), (32768, 32768), (409600, 409600),
+    (8192, 8192), (256, 4099), (512, 1000), (1, 300), (3, 5), (100, 1)])
+def test_fma_plan_covers_columns_in_whole_tiles(b, n, bpsm):
+    """Kernels 1 and 2's FMA plan on a 132-SM card at the paths' shapes
+    (256 and 512 fast rows, full sweeps of 8192, 32768 and 409600 rows)
+    and ragged ones: its splits of whole 256-column tiles cover [0, n)
+    exactly once with at least two tiles a block where n has them; they
+    are split_plan's at the chosen lane count's slots; the lanes are the
+    fewest that keep _FMA_MIN_WARPS warps an SM resident (a fast group's
+    two row blocks take four lanes, the tree slice's four row blocks and a
+    full sweep one)."""
+    sms = 132
+    lanes, splits, per = cn.fma_plan(b, n, sms, bpsm)
+    tiles = -(-n // cn._TJ)
+    assert lanes in cn._FMA_LANES
+    assert 1 <= splits <= tiles and per >= min(cn._MIN_TILES, tiles)
+    cps = per * cn._TJ
+    covered = np.zeros(n, np.int64)
+    for s in range(splits):
+        lo, hi = s * cps, min(n, (s + 1) * cps)
+        assert lo < hi and lo % cn._TJ == 0
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    slots = dict(zip(cn._FMA_LANES, bpsm))
+    assert (splits, per) == cn.split_plan(b, n, sms * slots[lanes])
+    row_blocks = -(-b // cn._TB)
+
+    def warps(count):
+        s, _ = cn.split_plan(b, n, sms * slots[count])
+        return min(row_blocks * s / sms, slots[count]) * 4 * count
+
+    fewer = [c for c in cn._FMA_LANES if c < lanes]
+    assert all(warps(c) < cn._FMA_MIN_WARPS for c in fewer)
+    if warps(lanes) < cn._FMA_MIN_WARPS:
+        assert warps(lanes) == max(warps(c) for c in cn._FMA_LANES)
+    if (b, n) == (256, 32768):
+        assert lanes == 4
+    if (b, n) == (512, 409600) or b >= 8192:
+        assert lanes == 1
 
 
 @pytest.mark.parametrize("x", [
@@ -389,42 +434,78 @@ def test_pred_rows_at_outputs_are_not_rewritten(use_mxu):
 
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card():
-    """Each CUDA kernel against its plain version on the card, at the
-    bars above (f64 plain reference), with ragged and tiny shapes."""
+    """Kernels 1 and 2's FMA bodies against their f64 plain versions on
+    the card, at the bars above: ragged and tiny shapes (n < 256, b = 1),
+    a contiguous full sweep and a row subset at eps2 = 0 and 1e-30 (no
+    coincident stars), rows whose ids sit at tile edges (0, 255, 256,
+    n - 1), padding rows (id -1) that fill whole warps, kernel 2 at
+    K = 512 and 256; every call twice, with the same bits, and one launch
+    counted a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
-    for n, b in ((777, 777), (4099, 256), (5, 3)):
+    d = lambda t: t.double()
+
+    def check(key, fn, ref_fn, bar):
+        before = cn.LAUNCHES[key]
+        got, again = fn(), fn()
+        assert cn.LAUNCHES[key] == before + 2
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        for g_, r_ in zip(got, ref_fn()):
+            if r_.abs().max() > 0:
+                assert _rel(g_.cpu(), r_.cpu()) < bar
+            else:
+                assert not g_.any()
+
+    for n, b in ((777, 777), (4099, 4099), (4099, 256), (5, 3), (200, 1),
+                 (65536, 512)):
         pos, vel, mass = (T(a, device=dev) for a in _system(n, seed=n,
                                                              offset=1.0))
-        ids = torch.as_tensor(
-            np.random.default_rng(n).choice(n, b, replace=False),
-            dtype=torch.int32, device=dev)
-        rp, rv = pos[ids].contiguous(), vel[ids].contiguous()
-        before = cn.LAUNCHES["nbody_rows"]
-        for kw in ({}, {"pot_eps2": 1e-30}, {"with_jerk": False},
-                   {"with_pot": False}):
-            got = cn.nbody_rows(rp, rv, ids, pos, vel, mass, 1e-3, **kw)
-            ref = cn.nbody_rows_plain(rp.double(), rv.double(), ids,
-                                      pos.double(), vel.double(),
-                                      mass.double(), 1e-3, **kw)
-            for g_, r_ in zip(got, ref):
-                if r_.abs().max() > 0:
-                    assert _rel(g_.cpu(), r_.cpu()) < 1e-5
-                else:
-                    assert not g_.any()
-        assert cn.LAUNCHES["nbody_rows"] == before + 4
+        rng = np.random.default_rng(n + b)
+        if b == n and n != 777:
+            ids = np.arange(n)                      # contiguous
+        elif n == 4099:                             # ids at tile edges
+            edges = [0, 255, 256, n - 1]
+            rest = rng.choice(np.setdiff1d(np.arange(n), edges), b - 4,
+                              replace=False)
+            ids = np.concatenate([edges, rest])
+        else:
+            ids = rng.choice(n, b, replace=False)
+        ids = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+        rp, rv = pos[ids.long()].contiguous(), vel[ids.long()].contiguous()
+        cases = [(rp, rv, ids)]
+        if b >= 128:
+            # rows 64..127 padding: two whole warps with no own id
+            pid = ids.clone()
+            pid[64:128] = -1
+            pp = rp.clone()
+            pp[64:128] = 0.5
+            cases.append((pp, rv, pid))
+        eps2s = (1e-3, 0.0, 1e-30) if n == 4099 else (1e-3,)
+        for eps2 in eps2s:
+            for k, (xp, xv, xi) in enumerate(cases):
+                if eps2 < 1e-3 and k > 0:
+                    continue                        # padding rows coincide
+                for kw in ({}, {"pot_eps2": 1e-30}, {"with_jerk": False},
+                           {"with_pot": False}):
+                    check("nbody_rows",
+                          lambda: cn.nbody_rows(xp, xv, xi, pos, vel, mass,
+                                                eps2, **kw),
+                          lambda: cn.nbody_rows_plain(d(xp), d(xv), xi,
+                                                      d(pos), d(vel),
+                                                      d(mass), eps2, **kw),
+                          1e-5)
         a0 = 0.1 * torch.randn_like(pos)
         j0 = 0.05 * torch.randn_like(pos)
         tau = torch.tensor(0.0037, device=dev)
-        got = cn.nbody_predcols(rp, rv, ids, pos, vel, a0, j0, mass, tau,
-                                1e-3)
-        ref = cn.nbody_predcols_plain(rp.double(), rv.double(), ids,
-                                      pos.double(), vel.double(),
-                                      a0.double(), j0.double(),
-                                      mass.double(), tau.double(), 1e-3)
-        for g_, r_ in zip(got, ref):
-            assert _rel(g_.cpu(), r_.cpu()) < 2e-5
+        for xp, xv, xi in cases:
+            check("nbody_predcols",
+                  lambda: cn.nbody_predcols(xp, xv, xi, pos, vel, a0, j0,
+                                            mass, tau, 1e-3),
+                  lambda: cn.nbody_predcols_plain(d(xp), d(xv), xi, d(pos),
+                                                  d(vel), d(a0), d(j0),
+                                                  d(mass), d(tau), 1e-3),
+                  2e-5)
     torch.cuda.synchronize()
 
 
@@ -486,7 +567,18 @@ def test_mma_kernels_match_plain_on_card():
                                       use_mxu=True)
         for g_, r_ in zip(got, ref):
             assert _rel(g_.cpu(), r_.cpu()) < 5e-4
-        splits, _ = cn.mma_plan(b, n, cn._mma_slots(dev, True,
+        # a bare launcher outlives its plan: the plan's centre, columns
+        # and scratch stay allocated while blocks freed since are refilled
+        launch, outs = cn.PredcolsMma(pos, vel, a0, j0, mass, 1e-3).launcher(
+            rp, rv, ids, tau)
+        gc.collect()
+        junk = [torch.full((m,), -1.0, device=dev)
+                for m in (6, 512, 4096, 1 << 16, 1 << 20) for _ in range(4)]
+        for _ in range(2):
+            assert launch() == 0
+            assert all(torch.equal(x, y) for x, y in zip(outs, got))
+        del junk
+        splits, _ = cn.split_plan(b, n, cn._mma_slots(dev, True,
                                                      cn.POT_NONE, True))
         one_split |= splits == 1
         many_splits |= splits > 1
