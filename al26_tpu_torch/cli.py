@@ -8,8 +8,8 @@ port's counterpart of JAX_PLATFORMS; a cuda run on a machine without a
 card raises, it never falls back to the CPU). Run as
 `python -m al26_tpu_torch.cli ...` or via the `al26-nbody-torch` console
 entry point. The flags of what is not ported yet — --mesh_shape,
---force_impl sharded|ring, --orbax_dir, --gravity_stride > 1 — are
-refused before any run starts (sim.driver.check_ported).
+--force_impl sharded|ring, --orbax_dir — are refused before any run
+starts (sim.driver.check_ported).
 """
 from __future__ import annotations
 
@@ -146,11 +146,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Hermite accuracy parameter (smaller = more "
                         "substeps)")
     p.add_argument("--gravity_stride", type=int, default=1,
-                   help="Physics steps per full O(N^2) force advance "
-                        "(hermite4_block Pallas path only): interior steps "
-                        "use predictor-sampled positions; 1 = exact "
-                        "reference cadence, 2 = 1.76x faster at N=1e5 for "
-                        "a 1.8e-6 relative energy deviation (see "
+                   help="Physics steps per full force advance (cached "
+                        "hermite4_block single runs, direct sum or tree): "
+                        "interior steps use predictor-sampled positions; "
+                        "1 = exact reference cadence (accuracy: "
                         "docs/precision.md)")
     p.add_argument("--softened_virial", action="store_true",
                    help="compute the virial radius (global wind bubble) "

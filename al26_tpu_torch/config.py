@@ -137,9 +137,9 @@ class SimConfig:
     #   advance per `gravity_stride` physics steps; the interior steps read
     #   predictor-sampled positions (fast group: subcycle-captured). All
     #   SLR physics still runs every dt — only the full O(N^2) sweep is
-    #   strided. 1 = exact reference cadence (default). Not ported yet:
-    #   sim.step raises NotImplementedError for a stride > 1 on a
-    #   cache-capable hermite4_block path (ROADMAP queue 1, the ladder).
+    #   strided. 1 = exact reference cadence (default). Engages on a
+    #   cache-capable hermite4_block single run (sim.step.stride_active);
+    #   ensembles refuse it.
     softened_virial: bool = False      # compute the virial radius (global
     #   wind-bubble size) from the BHTree-SOFTENED potential instead of the
     #   reference's raw one (AMUSE virial_radius, al26_nbody.py:767-770).

@@ -22,8 +22,8 @@ The files are the JAX package's (io.checkpoint): either package resumes
 the other's runs. `device` (default "cuda") is where the run computes; a
 "cuda" run on a machine without a card raises, it never falls back to the
 CPU. Not ported, and refused before anything runs (check_ported): device
-meshes (mesh_shape, force_impl "sharded" / "ring"), the orbax backend
-(orbax_dir) and the gravity stride (gravity_stride > 1).
+meshes (mesh_shape, force_impl "sharded" / "ring") and the orbax backend
+(orbax_dir).
 """
 from __future__ import annotations
 
@@ -50,14 +50,13 @@ _NOT_PORTED = {
     "mesh_shape": "ROADMAP queue 1, item 8 (the multi-device axes)",
     "force_impl": "ROADMAP queue 1, item 8 (the multi-device axes)",
     "orbax_dir": "ROADMAP queue 1, item 8 (io/orbax_backend.py)",
-    "gravity_stride": "ROADMAP queue 1, item 5 (the gravity stride)",
 }
 
 
 def check_ported(cfg: SimConfig) -> None:
     """Refuse the options this port does not run yet, each naming its
-    ROADMAP item: a device mesh, the sharded / ring force backends, the
-    orbax checkpoint tree and a gravity stride above 1."""
+    ROADMAP item: a device mesh, the sharded / ring force backends and
+    the orbax checkpoint tree."""
     bad = []
     if cfg.mesh_shape:
         bad.append(("mesh_shape", cfg.mesh_shape))
@@ -65,8 +64,6 @@ def check_ported(cfg: SimConfig) -> None:
         bad.append(("force_impl", cfg.force_impl))
     if cfg.orbax_dir:
         bad.append(("orbax_dir", cfg.orbax_dir))
-    if cfg.gravity_stride > 1:
-        bad.append(("gravity_stride", cfg.gravity_stride))
     if bad:
         raise NotImplementedError("; ".join(
             f"{k}={v!r} is not ported yet ({_NOT_PORTED[k]})"
@@ -366,12 +363,17 @@ def run(cfg: SimConfig, progress: bool = True,
     # first step reuses the previous chunk's closing O(N^2) evaluation
     from .step import (
         _cacheable, _resolve_integ, fresh_cache, run_steps, run_steps_cached,
-        run_steps_traj, run_steps_traj_cached,
+        run_steps_cached_strided, run_steps_traj, run_steps_traj_cached,
+        stride_active,
     )
 
     c = state.cluster
     use_cache = _cacheable(cfg, c.n, c.pos.dtype, c.pos.device, None,
                            cfg.force_impl)
+    # the stride's interior physics steps have no per-step row collection,
+    # so trajectory runs stay unstrided (and cached)
+    use_stride = (not write_traj) and stride_active(
+        cfg, c.n, c.pos.dtype, c.pos.device, None, cfg.force_impl)
     cache = [None]
 
     def seed_cache(s):
@@ -392,8 +394,10 @@ def run(cfg: SimConfig, progress: bool = True,
             return s
         if use_cache:
             seed_cache(s)
-            s, cache[0] = run_steps_cached(s, cache[0], aux, cfg, n, None,
-                                           cfg.force_impl)
+            runner = run_steps_cached_strided if use_stride \
+                else run_steps_cached
+            s, cache[0] = runner(s, cache[0], aux, cfg, n, None,
+                                 cfg.force_impl)
             return s
         return run_steps(s, aux, cfg, n, force_impl=cfg.force_impl)
 
@@ -535,7 +539,7 @@ def run_ensemble(cfg: SimConfig, progress: bool = True,
     check_ported(cfg)
     device = run_device(device)
     print(f"# checkpoint writer: {compression.writer()}")
-    if cfg.softened_virial or cfg.k_ultra:
+    if cfg.gravity_stride > 1 or cfg.softened_virial or cfg.k_ultra:
         # the opt-in perf ladder is a single-run capability; the ensemble
         # path runs BHTree-parity leapfrog with the raw-potential virial
         # radius. Raise rather than silently drop an explicit opt-in.

@@ -29,9 +29,12 @@ relative MAC reaches the integrator only through the force cache, so an
 uncached step() raises ValueError (the JAX package's uncached step
 silently opens geometrically there).
 
+cfg.gravity_stride = m > 1 (run_steps_cached_strided, engaged by
+run_steps and the driver where stride_active says so) makes m physics
+steps share one hermite4_block force advance over m*dt (_stride_impl).
+
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
-the device-mesh backends ("sharded", "ring", any mesh) and the gravity
-stride (gravity_stride > 1 where it would engage).
+the device-mesh backends ("sharded", "ring", any mesh).
 """
 from __future__ import annotations
 
@@ -53,7 +56,6 @@ from .init import SimAux
 
 _MESH_TODO = ("ROADMAP queue 1, the multi-device axes "
               "(parallel/sharded.py, ring.py, tree_mesh.py)")
-_LADDER_TODO = "ROADMAP queue 1, the opt-in ladder (gravity_stride)"
 
 
 def _not_ported(what: str, item: str):
@@ -184,6 +186,13 @@ def _corrected_cache(new_cluster, old_cluster, aux: SimAux, cfg: SimConfig,
     return a1, torch.zeros_like(a1) if j1 is None else j1, pot1
 
 
+def _virial_radius_from_pot(mass, pot):
+    """Virial radius -G M^2 / (2 U) from a sweep's per-star potential."""
+    u = 0.5 * torch.sum(mass * pot)
+    mtot = torch.sum(mass)
+    return -G_INTERNAL * mtot * mtot / (2.0 * u)
+
+
 def _pot_eps2(cfg: SimConfig):
     """Potential softening for the per-step sweep: the reference computes
     the virial radius from the RAW potential (AMUSE virial_radius,
@@ -283,10 +292,8 @@ def _step_impl(state: SimState, aux: SimAux, cfg: SimConfig,
                                     needs_jerk)
         a0, j0, pot = cache if cache is not None else sweep_eval(c.pos,
                                                                  c.vel)
-        u = 0.5 * torch.sum(c.mass * pot)
         init_eval = (a0, j0) if needs_jerk else (a0, None)
-        mtot = torch.sum(c.mass)
-        r_vir = -G_INTERNAL * mtot * mtot / (2.0 * u)
+        r_vir = _virial_radius_from_pot(c.mass, pot)
     else:
         r_vir = virial_radius(c.pos, c.mass)
     pos_old = c.pos
@@ -469,8 +476,8 @@ def physics_after_advance(state: SimState, aux: SimAux, cfg: SimConfig,
 
 def stride_active(cfg: SimConfig, n, dtype, device, mesh,
                   force_impl) -> bool:
-    """Would al26_tpu's gravity stride engage here (gravity_stride > 1 on
-    a cache-capable hermite4_block path)?"""
+    """Does the gravity stride engage here (gravity_stride > 1 on a
+    cache-capable hermite4_block path)?"""
     return (
         getattr(cfg, "gravity_stride", 1) > 1
         and _resolve_integ(cfg, n) == "hermite4_block"
@@ -483,14 +490,17 @@ def run_steps(state: SimState, aux: SimAux, cfg: SimConfig,
     """`n_steps` physics steps (the reference saves every
     `steps_per_plot`=10 steps, al26_nbody.py:1754-1760). On the kernel
     path the closing force evaluation of each step is carried into the
-    next (mass-delta-corrected): ONE full O(N^2) sweep per step."""
+    next (mass-delta-corrected): ONE full O(N^2) sweep per step, or one
+    per gravity stride where stride_active."""
     c = state.cluster
     if _cacheable(cfg, c.n, c.pos.dtype, c.pos.device, mesh, force_impl):
-        if stride_active(cfg, c.n, c.pos.dtype, c.pos.device, mesh,
-                         force_impl):
-            raise _not_ported("gravity_stride > 1", _LADDER_TODO)
         cache = fresh_cache(state, cfg, _resolve_integ(cfg, c.n), mesh,
                             force_impl)
+        if stride_active(cfg, c.n, c.pos.dtype, c.pos.device, mesh,
+                         force_impl):
+            state, _ = run_steps_cached_strided(state, cache, aux, cfg,
+                                                n_steps, mesh, force_impl)
+            return state
         state, _ = run_steps_cached(state, cache, aux, cfg, n_steps,
                                     mesh, force_impl)
         return state
@@ -509,13 +519,90 @@ def run_steps_cached(state: SimState, cache, aux: SimAux, cfg: SimConfig,
     return state, cache
 
 
-def run_strides_cached(*args, **kwargs):
-    raise _not_ported("run_strides_cached (gravity stride)", _LADDER_TODO)
+def _stride_impl(state: SimState, aux: SimAux, cfg: SimConfig, cache,
+                 m: int, mesh=None, force_impl: str = "auto"):
+    """m physics steps sharing ONE hermite4_block force advance over m*dt
+    (the gravity stride, cfg.gravity_stride).
+
+    The advance spans m*dt; the m-1 interior physics steps read the
+    cluster at k*dt from the integrator's interior samples (slow stars:
+    step-start Hermite predictor; fast stars: captured in the subcycle at
+    the crossing substep — ops.integrators.hermite4_block_advance). All
+    deposition/SN/decay/condensation physics still runs every dt; only the
+    full O(N^2) (or tree) force evaluation is strided. The virial radius
+    (global wind bubble) is held at its stride-start value for ALL m
+    physics steps of the stride, the closing one included. Stellar mass
+    loss feeds back into gravity at stride boundaries through the exact
+    mass-delta cache correction: an m*dt lag instead of the unstrided
+    scheme's dt lag."""
+    c = state.cluster
+    dtype, device = c.pos.dtype, c.pos.device
+    dt = torch.as_tensor(cfg.dt, dtype=dtype, device=device)
+    eps2 = torch.as_tensor(cfg.eps2, dtype=dtype, device=device)
+
+    a0, j0, pot = cache
+    r_vir = _virial_radius_from_pot(c.mass, pot)
+
+    tree_aref = None
+    if force_impl == "tree" and cfg.tree_mac == "relative":
+        # the closing sweep opens nodes against the STRIDE-START
+        # acceleration magnitudes
+        tree_aref = torch.sqrt(torch.sum(a0 * a0, dim=-1))
+    final_eval_fn = _sweep_eval_fn(cfg, mesh, force_impl, c.mass,
+                                   needs_jerk=True, tree_aref=tree_aref)
+    # the subcycle's row sweeps: the kernels wherever they run (the tree
+    # tier included), the plain row block elsewhere (CPU tensors, f64)
+    rows_kernel = cuda_nbody.use_kernel(c.n, dtype, device)
+    force_rows_fn = _build_force_rows_fn(
+        c.mass, cfg.eps2, "pallas" if rows_kernel else "default")
+    rows_at_factory = _build_rows_at_factory(c.mass, cfg.eps2, rows_kernel)
+    pos_c, vel_c, (a1, j1, pot1), (pos_s, vel_s) = advance(
+        c.pos, c.vel, c.mass, m * dt,
+        integrator="hermite4_block", eta=cfg.eta_hermite,
+        # the advance spans m*dt: scale the substep budget so the minimum
+        # substep floor (h_min = span/max_substeps) stays dt/substeps_max
+        eps2=eps2, max_substeps=cfg.substeps_max * m,
+        force_fn=None, k_fast=cfg.k_fast or 0,
+        force_rows_fn=force_rows_fn, init_eval=(a0, j0),
+        final_eval_fn=final_eval_fn, interior_samples=m - 1,
+        k_ultra=cfg.k_ultra, force_rows_at_factory=rows_at_factory,
+    )
+
+    s = state
+    pos_prev = c.pos
+    for k in range(m - 1):
+        s = physics_after_advance(s, aux, cfg, pos_prev, pos_s[k], vel_s[k],
+                                  r_vir)
+        pos_prev = pos_s[k]
+    s = physics_after_advance(s, aux, cfg, pos_prev, pos_c, vel_c, r_vir)
+    return s, _corrected_cache(s.cluster, c, aux, cfg, mesh, pos_c, vel_c,
+                               a1, j1, pot1)
 
 
-def run_steps_cached_strided(*args, **kwargs):
-    raise _not_ported("run_steps_cached_strided (gravity stride)",
-                      _LADDER_TODO)
+def run_strides_cached(state: SimState, cache, aux: SimAux, cfg: SimConfig,
+                       n_strides: int, m: int, mesh=None,
+                       force_impl: str = "auto"):
+    """n_strides gravity strides of m physics steps each."""
+    for _ in range(n_strides):
+        state, cache = _stride_impl(state, aux, cfg, cache, m, mesh,
+                                    force_impl)
+    return state, cache
+
+
+def run_steps_cached_strided(state: SimState, cache, aux: SimAux,
+                             cfg: SimConfig, n_steps: int, mesh=None,
+                             force_impl: str = "auto"):
+    """As many full strides as fit, then the remainder as plain cached
+    steps (driver checkpoint chunks are not always stride-aligned)."""
+    m = cfg.gravity_stride
+    n_str, rem = divmod(n_steps, m)
+    if n_str:
+        state, cache = run_strides_cached(state, cache, aux, cfg, n_str, m,
+                                          mesh, force_impl)
+    if rem:
+        state, cache = run_steps_cached(state, cache, aux, cfg, rem,
+                                        mesh, force_impl)
+    return state, cache
 
 
 def _traj_row(s_old: SimState, s_new: SimState, cfg: SimConfig):

@@ -34,6 +34,21 @@ Phases, one result line each (any failure exits non-zero):
               n = 8192 (hermite4) and n = 32768 (hermite4_block,
               k_fast = 256); seconds per simulated Myr, substeps per step,
               launch counts, and the physics invariants.
+  5s. stride  the gravity stride on phase 5's N = 32768 run, from the
+              same initial bits: gravity_stride = 4, 20 steps as two
+              cached chunks of 10 (each 2 strides and 2 plain cached
+              steps); s/Myr and substeps per dt beside phase 5's; kernel
+              1c launched exactly 1 + 2 x (2 + 2) = 9 times (the fresh
+              cache, one closing sweep per stride or plain step); against
+              phase 5's state after the same 20 steps: masses exactly,
+              the pos RMS difference (pc) and the total SLR's relative
+              difference each within 10 % of the JAX package's own for
+              the same pair of runs (4.27e-4 pc and 2.09e-2 on the CPU,
+              tests/stride_deviation.py), each run's relative energy
+              change; then
+              kernel 2c at K = 256 and tau = 4 dt on the live state
+              against its f64 plain version (bar 5e-4), and the physics
+              invariants.
 
 The Barnes-Hut tier (force_impl="tree", fractal ICs), run in this order:
 
@@ -71,6 +86,16 @@ The Barnes-Hut tier (force_impl="tree", fractal ICs), run in this order:
               tree_mac="relative" at N = 131072 for 5 steps (exact kernel-1
               seeding sweep). Kernel 2c there (K = 512) also twice (the
               same bits) and timed as in phase 3d.
+  5t. tree stride  the full ladder (gravity_stride = 4, softened_virial)
+              from phase 5b's initial state: 16 steps as two cached chunks
+              of 8 (4 strides); s/Myr beside phase 5b's, substeps per dt,
+              the near-field launches per closing sweep, kernel 2c's
+              launches, peak memory, kernel 2c at K = 512 and tau = 4 dt
+              on the live state (bar 5e-4), the physics invariants; then
+              the same 16 steps under the relative MAC at N = 131072 from
+              phase 5b's relative run's initial state (one exact seeding
+              sweep, closing sweeps against the stride-start
+              accelerations).
 
 The flattened ensembles (parallel.ensemble, kernel 1's group windows):
 
@@ -126,10 +151,15 @@ sweep, as in the JAX package) and the entry path of a user:
   6b. driver  sim.driver.run at N = 32768, f32, 20 steps, 4 state files:
               the matmul kernels launched, the FMA bodies not, s/Myr with
               the saves beside phase 5's, the seconds in the saves;
+  6d. driver stride  the run of 6b with gravity_stride = 4: 4 state
+              files, kernel 1c launched exactly 9 times (save chunks of 1
+              and 9 steps: 1 plain step, then 2 strides and 1 plain step),
+              s/Myr with the saves beside 6b's;
   6c. ensemble driver  sim.driver.run_ensemble, 64 x 1000, 20 steps: the
               64 pt-<k> folders and their files, s/Myr with the saves.
 
-The run order: 1, 2, 3, 3d, 3b, 3c, 4, 4d, 4b, 4c, 5, 5b, 5c, 6, 6b, 6c.
+The run order: 1, 2, 3, 3d, 3b, 3c, 4, 4d, 4b, 4c, 5, 5s, 5b, 5t, 5c, 6,
+6b, 6d, 6c.
 
 Then one JSON line with every kernel's launches (kernels 1-3 from phase 5b,
 the windowed kernel from the 64 x 1000 run of phase 5c, the matmul kernels
@@ -195,6 +225,15 @@ SFU_PER_CLK = 16
 _CARD = {"sms": 132, "sm_clock_hz": 1.98e9}
 # back-to-back launches per device-only timing
 MMA_REPS = 50
+# the gravity stride's phases (5s, 5t, 6d): the stride, and how far the
+# JAX package's own stride-4 run lands from its unstrided one on phase 5's
+# N_KERNEL run (the same initial bits, 20 steps as two chunks of 10, f32):
+# the pos RMS difference in pc and the total SLR's relative difference
+# (JAX_PLATFORMS=cpu python tests/stride_deviation.py --n 32768). Phase 5s
+# holds the card's pair of runs to these within STRIDE_REF_TOL relative.
+STRIDE = 4
+STRIDE_REF = {"pos_rms_pc": 4.2728e-4, "slr_total_rel": 2.0874e-2}
+STRIDE_REF_TOL = 0.1
 
 
 def _line(phase: str, **kw) -> None:
@@ -883,6 +922,7 @@ def phase_slice(n: int, expect_integ: str):
         cn.LAUNCHES[k] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    state0 = state
     cache = fresh_cache(state, cfg, integ, None, "auto")
     for _ in range(2):                     # two checkpoint-sized chunks
         state, cache = run_steps_cached(state, cache, aux, cfg, 10, None,
@@ -909,7 +949,9 @@ def phase_slice(n: int, expect_integ: str):
           wind_total=float(host["slr"][:, :, 0:2].sum()), checks=checks)
     if not all(checks.values()):
         _fail(f"n={n}: {[k for k, v in checks.items() if not v]} failed")
-    return wall / sim_myr
+    return {"s_per_myr": wall / sim_myr, "state0": state0, "aux": aux,
+            "cfg": cfg, "state": state, "launches": launches,
+            "substeps_per_dt": substeps}
 
 
 def _host_invariants(host) -> dict:
@@ -1205,16 +1247,17 @@ def _sweep_breakdown(state, cfg) -> dict:
                                         warmup=1)}
 
 
-def _fast_rows(c, a0, j0, cfg):
-    """The subcycle's rows at a tree slice's state: the k_fast stars of
-    largest |a| predicted from the force cache to dt / 2; returns (pf, vf,
+def _fast_rows(c, a0, j0, cfg, tau_dt: float = 0.5):
+    """The subcycle's rows at a slice's state: the k_fast stars of largest
+    |a| predicted from the force cache to tau_dt * dt; returns (pf, vf,
     ids, tau)."""
     import torch
 
     from al26_tpu_torch.ops import cuda_nbody as cn
 
     sel = torch.topk(a0.norm(dim=1), cfg.k_fast).indices.to(torch.int32)
-    tau = torch.tensor(0.5 * cfg.dt, dtype=torch.float32, device=a0.device)
+    tau = torch.tensor(tau_dt * cfg.dt, dtype=torch.float32,
+                       device=a0.device)
     pf, vf = cn.predict_columns(c.pos[sel], c.vel[sel], a0[sel], j0[sel],
                                 tau)
     return pf.contiguous(), vf.contiguous(), sel, tau
@@ -1361,7 +1404,8 @@ def phase_tree_slice():
     steps as two cached chunks of 5, all three kernels, each then held
     against its plain version at this path's shapes; then the relative
     MAC at N_NEAR for 5 steps (exact kernel-1 seeding sweep). Returns the
-    launches and the kernel comparisons."""
+    launches, the kernel comparisons and both runs' initial states and
+    times (phase 5t starts from them)."""
     import torch
 
     from al26_tpu_torch import SimConfig
@@ -1387,6 +1431,7 @@ def phase_tree_slice():
     if not all(resolved.values()):
         _fail(f"tree slice resolved {cfg.integrator}, theta "
               f"{cfg.tree_theta}, leaf {cfg.tree_leaf}, kavg {cfg.tree_kavg}")
+    state0 = state                         # phase 5t starts from here
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1440,6 +1485,7 @@ def phase_tree_slice():
     rcfg = SimConfig(n=N_NEAR, model="fractal", rc=1.0, seed=42,
                      dtype="f32", force_impl="tree", tree_mac="relative")
     rstate, raux, rcfg = init_cluster(rcfg, device=dev)
+    rstate0 = rstate
     _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1456,7 +1502,222 @@ def phase_tree_slice():
     if not all(rchecks.values()):
         _fail(f"relative tree run: "
               f"{[k for k, v in rchecks.items() if not v]} failed")
-    return launches, kernel_checks
+    runs = {"geometric": {"state0": state0, "aux": aux, "cfg": cfg,
+                          "s_per_myr": wall / (steps * cfg.dt),
+                          "substeps_per_dt": step_launches[
+                              "nbody_predcols_mma"] / steps,
+                          "near_field": step_launches["near_field"],
+                          "steps": steps, "peak_mem_gb": peak_gb},
+            "relative": {"state0": rstate0, "aux": raux, "cfg": rcfg,
+                         "s_per_myr": rwall / (5 * rcfg.dt)}}
+    return launches, kernel_checks, runs
+
+
+def _energy(state, cfg) -> float:
+    """Total energy (kinetic + the cfg.eps2-softened potential) in f64,
+    plain torch on the card."""
+    from al26_tpu_torch.ops.nbody import total_energy
+
+    c = state.cluster
+    return float(total_energy(c.pos.double(), c.vel.double(),
+                              c.mass.double(), cfg.eps2))
+
+
+def _pred_mma_at_stride(state, cache, cfg, m: int) -> dict:
+    """Kernel 2c at the stride's furthest tau = m * dt: K = k_fast rows
+    against all N columns predicted from the live force cache, against
+    its f64 plain version (_pred_mma_check, bar PRED_MMA_TOL)."""
+    c = state.cluster
+    pf, vf, sel, tau = _fast_rows(c, cache[0], cache[1], cfg, tau_dt=m)
+    rec = _pred_mma_check(pf, vf, sel, c.pos, c.vel, cache[0], cache[1],
+                          c.mass, tau, cfg.eps2)
+    return {"tau_dt": m, **rec}
+
+
+def _pred_mma_ok(rec: dict) -> bool:
+    return (all(v < rec["tol"] for v in rec["rel_err"].values())
+            and rec["repeat_same_bits"])
+
+
+def _closing_sweeps(n_steps: int, m: int) -> int:
+    """Closing sweeps of run_steps_cached_strided over n_steps: one per
+    stride, one per plain step of the remainder."""
+    return n_steps // m + n_steps % m
+
+
+def phase_stride_slice(base: dict) -> dict:
+    """Phase 5's N_KERNEL run again from the same initial bits with
+    gravity_stride = STRIDE: 20 steps as two cached chunks of 10 (each 2
+    strides and 2 plain cached steps); against phase 5's state after the
+    same 20 steps: masses exactly; the pos RMS difference and the total
+    SLR's relative difference, each within STRIDE_REF_TOL of the JAX
+    package's own (STRIDE_REF); each run's relative energy change; kernel
+    2c at tau = STRIDE * dt on the live state."""
+    import torch
+
+    from al26_tpu_torch.sim.step import (
+        fresh_cache, run_steps_cached_strided, stride_active,
+    )
+
+    m, steps = STRIDE, 20
+    state, aux = base["state0"], base["aux"]
+    cfg = base["cfg"].replace(gravity_stride=m)
+    c = state.cluster
+    if not stride_active(cfg, c.n, c.pos.dtype, c.pos.device, None, "auto"):
+        _fail("the stride does not engage on the N_KERNEL slice")
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = fresh_cache(state, cfg, cfg.integrator, None, "auto")
+    for _ in range(2):                     # two checkpoint-sized chunks
+        state, cache = run_steps_cached_strided(state, cache, aux, cfg,
+                                                steps // 2, None, "auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    want_rows = 1 + 2 * _closing_sweeps(steps // 2, m)
+    checks, host = _state_checks(state, cfg, steps)
+    ref = base["state"].cluster
+    got = state.cluster
+    pos_rms = float((got.pos.double() - ref.pos.double()).pow(2).sum(1)
+                    .mean().sqrt())
+    slr_got, slr_ref = float(got.slr.double().sum()), \
+        float(ref.slr.double().sum())
+    slr_rel = abs(slr_got - slr_ref) / abs(slr_ref)
+    e0 = _energy(base["state0"], cfg)
+    energy = {"stride": (_energy(state, cfg) - e0) / abs(e0),
+              "unstrided": (_energy(base["state"], cfg) - e0) / abs(e0)}
+    checks.update({
+        "rows_mma_launches": launches["nbody_rows_mma"] == want_rows,
+        "predcols_mma_launched": launches["nbody_predcols_mma"] > 0,
+        "fma_bodies_idle": not (launches["nbody_rows"]
+                                or launches["nbody_predcols"]),
+        "cache_finite": all(bool(torch.isfinite(x).all()) for x in cache),
+        "mass_equal": torch.equal(got.mass, ref.mass),
+        "pos_rms_as_reference": abs(pos_rms / STRIDE_REF["pos_rms_pc"] - 1)
+        < STRIDE_REF_TOL,
+        "slr_total_as_reference": abs(
+            slr_rel / STRIDE_REF["slr_total_rel"] - 1) < STRIDE_REF_TOL,
+    })
+    # after the counts are read: these launches compare, they do not count
+    pred = _pred_mma_at_stride(state, cache, cfg, m)
+    checks["predcols_mma_at_stride_tau"] = _pred_mma_ok(pred)
+    _line("stride slice", n=c.n, stride=m, integrator=cfg.integrator,
+          k_fast=cfg.k_fast, steps=steps, wall_s=wall,
+          s_per_myr=wall / (steps * cfg.dt),
+          phase5_s_per_myr=base["s_per_myr"],
+          substeps_per_dt=launches["nbody_predcols_mma"] / steps,
+          phase5_substeps_per_dt=base["substeps_per_dt"],
+          launches=launches, rows_mma_want=want_rows,
+          phase5_launches=base["launches"], pos_rms_pc=pos_rms,
+          slr_total_rel=slr_rel, reference=STRIDE_REF,
+          reference_tol=STRIDE_REF_TOL, energy_rel_change=energy,
+          predcols_mma_at_stride_tau=pred,
+          wind_total=float(host["slr"][:, :, 0:2].sum()), checks=checks)
+    if not all(checks.values()):
+        _fail(f"stride slice: {[k for k, v in checks.items() if not v]} "
+              "failed")
+    return {"s_per_myr": wall / (steps * cfg.dt)}
+
+
+def _tree_stride_run(run: dict, steps: int, **knobs):
+    """init state of a phase 5b run -> fresh_cache and steps // 8 cached
+    chunks of 8 strided steps on the tree, launches counted from 0 just
+    before fresh_cache; returns (state, cache, cfg, wall, launches,
+    peak GB)."""
+    import torch
+
+    from al26_tpu_torch.sim.step import (
+        fresh_cache, run_steps_cached_strided, stride_active,
+    )
+
+    state, aux = run["state0"], run["aux"]
+    cfg = run["cfg"].replace(**knobs)
+    c = state.cluster
+    if not stride_active(cfg, c.n, c.pos.dtype, c.pos.device, None, "tree"):
+        _fail(f"the stride does not engage on the tree at n = {c.n}")
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = fresh_cache(state, cfg, cfg.integrator, None, "tree")
+    for _ in range(steps // 8):            # checkpoint-sized chunks
+        state, cache = run_steps_cached_strided(state, cache, aux, cfg, 8,
+                                                None, "tree")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (state, cache, cfg, wall, _launches(),
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_tree_stride(runs: dict) -> None:
+    """The tree with the full ladder (gravity_stride = STRIDE,
+    softened_virial) from phase 5b's initial state: 16 steps as two
+    cached chunks of 8 (4 strides), s/Myr beside phase 5b's, substeps per
+    dt, the launches, peak memory, kernel 2c at tau = STRIDE * dt and
+    K = k_fast on the live state; then the same 16 steps under the
+    relative MAC at N_NEAR from phase 5b's relative run's initial state
+    (the stride-start reference accelerations)."""
+    import torch
+
+    m, steps = STRIDE, 16
+    base = runs["geometric"]
+    state, cache, cfg, wall, launches, peak_gb = _tree_stride_run(
+        base, steps, gravity_stride=m, softened_virial=True)
+    checks, host = _state_checks(state, cfg, steps)
+    checks.update({
+        "cache_finite": all(bool(torch.isfinite(x).all()) for x in cache),
+        "near_field_launched": launches["near_field"] > 0,
+        "predcols_mma_launched": launches["nbody_predcols_mma"] > 0,
+        # no init in the window: the FMA virial sum is not on this path,
+        # nor (geometric MAC) the exact seeding sweep
+        "rows_idle": not (launches["nbody_rows"]
+                          or launches["nbody_rows_mma"]),
+    })
+    pred = _pred_mma_at_stride(state, cache, cfg, m)
+    checks["predcols_mma_at_stride_tau"] = _pred_mma_ok(pred)
+    _line("tree stride", n=state.cluster.n, stride=m,
+          softened_virial=cfg.softened_virial, k_fast=cfg.k_fast,
+          theta=cfg.tree_theta, leaf=cfg.tree_leaf, tree_kavg=cfg.tree_kavg,
+          steps=steps, wall_s=wall, s_per_myr=wall / (steps * cfg.dt),
+          wall_per_step_ms=1e3 * wall / steps,
+          phase5b_s_per_myr=base["s_per_myr"],
+          substeps_per_dt=launches["nbody_predcols_mma"] / steps,
+          phase5b_substeps_per_dt=base["substeps_per_dt"],
+          closing_sweeps=1 + 2 * _closing_sweeps(8, m),
+          near_field_per_closing_sweep=launches["near_field"]
+          / (1 + 2 * _closing_sweeps(8, m)),
+          phase5b_near_field_per_step=base["near_field"] / base["steps"],
+          launches=launches, peak_mem_gb=peak_gb,
+          phase5b_peak_mem_gb=base["peak_mem_gb"],
+          predcols_mma_at_stride_tau=pred,
+          wind_total=float(host["slr"][:, :, 0:2].sum()), checks=checks)
+    if not all(checks.values()):
+        _fail(f"tree stride: {[k for k, v in checks.items() if not v]} "
+              "failed")
+    del state, cache
+
+    rel = runs["relative"]
+    rstate, rcache, rcfg, rwall, rlaunch, rpeak = _tree_stride_run(
+        rel, steps, gravity_stride=m, softened_virial=True)
+    rchecks, _ = _state_checks(rstate, rcfg, steps)
+    rchecks.update({
+        "cache_finite": all(bool(torch.isfinite(x).all()) for x in rcache),
+        "near_field_launched": rlaunch["near_field"] > 0,
+        "predcols_mma_launched": rlaunch["nbody_predcols_mma"] > 0,
+        # the exact seeding sweep, once; the stride's closing sweeps open
+        # against the stride-start accelerations (tree sweeps)
+        "seeding_sweep_nbody_rows_mma": rlaunch["nbody_rows_mma"] == 1,
+    })
+    _line("tree stride relative", n=rstate.cluster.n, stride=m,
+          alpha=rcfg.tree_alpha, tree_kavg=rcfg.tree_kavg, steps=steps,
+          wall_s=rwall, s_per_myr=rwall / (steps * rcfg.dt),
+          phase5b_relative_s_per_myr=rel["s_per_myr"],
+          substeps_per_dt=rlaunch["nbody_predcols_mma"] / steps,
+          launches=rlaunch, peak_mem_gb=rpeak, checks=rchecks)
+    if not all(rchecks.values()):
+        _fail(f"relative tree stride: "
+              f"{[k for k, v in rchecks.items() if not v]} failed")
 
 
 def _ensemble(b: int, n: int, device, seed: int = 42):
@@ -1800,13 +2061,17 @@ def phase_cli():
         _fail(f"cli: {[k for k, v in checks.items() if not v]} failed")
 
 
-def phase_driver(slice_s_per_myr: float):
+def phase_driver(slice_s_per_myr: float, stride: int = 1,
+                 unstrided_s_per_myr: float | None = None) -> dict:
     """sim.driver.run in process at N = 32768 (20 steps at the default dt,
     a save after steps 1 and 11 and at the end, plus #0): the launches of
     the matmul kernels (counts set to 0 just before the run, read just
     after), s/Myr with the saves beside phase 5's without them
     (`slice_s_per_myr`), the seconds in the saves, the files and the
-    invariants. Returns the launches."""
+    invariants. With `stride` > 1 (phase 6d) the run is strided: kernel
+    1c's launches are the fresh cache's plus one closing sweep per stride
+    or plain step, and s/Myr stands beside phase 6b's
+    (`unstrided_s_per_myr`). Returns the launches and s/Myr."""
     import glob
     import tempfile
 
@@ -1818,7 +2083,8 @@ def phase_driver(slice_s_per_myr: float):
     tmp = tempfile.mkdtemp(prefix="al26-driver-")
     base = os.path.join(tmp, "drv")
     cfg = SimConfig(n=N_KERNEL, rc=1.0, dtype="f32", final_time=0.2,
-                    n_plot=2, steps_per_plot=10, seed=42, filename=base)
+                    n_plot=2, steps_per_plot=10, seed=42, filename=base,
+                    gravity_stride=stride)
     _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1836,19 +2102,30 @@ def phase_driver(slice_s_per_myr: float):
         "fma_bodies_idle": not (launches["nbody_rows"]
                                 or launches["nbody_predcols"]),
     })
+    want_rows = None
+    if stride > 1:
+        # save chunks of 1 and 9 steps (cadence saves after steps 1, 11)
+        want_rows = 1 + 2 * (_closing_sweeps(1, stride)
+                             + _closing_sweeps(9, stride))
+        checks["rows_mma_launches"] = launches["nbody_rows_mma"] == want_rows
     ph = res.phase_seconds
-    _line("driver", n=N_KERNEL, integrator=res.cfg.integrator, steps=steps,
+    _line("driver" if stride == 1 else "driver stride", n=N_KERNEL,
+          integrator=res.cfg.integrator, stride=stride, steps=steps,
           wall_s=wall, run_s=res.wall_time_s,
           s_per_myr_with_saves=wall / (steps * res.cfg.dt),
           phase5_s_per_myr=slice_s_per_myr,
+          phase6b_s_per_myr_with_saves=unstrided_s_per_myr,
+          rows_mma_want=want_rows,
           physics_s=ph.get("physics"), checkpoint_s=ph.get("checkpoint"),
           writer_thread_s=ph.get("writer"),
           saves_share=ph.get("checkpoint", 0.0) / wall,
           state_file_bytes=os.path.getsize(states[-1]), launches=launches,
           checks=checks)
     if not all(checks.values()):
-        _fail(f"driver: {[k for k, v in checks.items() if not v]} failed")
-    return launches
+        _fail(f"driver (stride {stride}): "
+              f"{[k for k, v in checks.items() if not v]} failed")
+    return {"launches": launches,
+            "s_per_myr": wall / (steps * res.cfg.dt)}
 
 
 def phase_ensemble_driver():
@@ -1934,11 +2211,16 @@ def main() -> int:
     phase_tree_accuracy()
     phase_tree_parity()
     phase_slice(8192, "hermite4")
-    slice_s_per_myr = phase_slice(N_KERNEL, "hermite4_block")
-    tree, checked = phase_tree_slice()
+    run5 = phase_slice(N_KERNEL, "hermite4_block")
+    phase_stride_slice(run5)
+    tree, checked, tree_runs = phase_tree_slice()
+    phase_tree_stride(tree_runs)
+    del tree_runs
     ensembles = [phase_ensemble_slice(*e) for e in ENSEMBLES]
     phase_cli()
-    drv = phase_driver(slice_s_per_myr)
+    drv = phase_driver(run5["s_per_myr"])
+    phase_driver(run5["s_per_myr"], stride=STRIDE,
+                 unstrided_s_per_myr=drv["s_per_myr"])
     phase_ensemble_driver()
     # launches: kernels 1-3 from the N_TREE tree-tier run, which exercises
     # all three, the error the worst of the kernel phases and that run's
@@ -1959,7 +2241,7 @@ def main() -> int:
     # the matmul bodies: launches from the driver at N_KERNEL (phase 6b),
     # the error the worst of phase 3d's and of the tree run's shapes
     for rec in mma:
-        rec["launches"] = drv[rec["name"]]
+        rec["launches"] = drv["launches"][rec["name"]]
         if rec["name"] in checked:
             rec["max_abs_err"] = max(rec["max_abs_err"],
                                      checked[rec["name"]]["max_abs_err"])

@@ -52,6 +52,9 @@ def test_every_jax_flag_exists_with_the_same_meaning():
     ["-n", "10", "-rc", "1", "--ensemble", "8", "--no_force_cache",
      "--yields_rewrite", "--sync_saves", "--sn_parity_mode",
      "--metallicity", "0.01", "--yields_vel", "0", "--device", "cpu"],
+    ["-n", "32", "-rc", "1", "--integrator", "hermite4_block",
+     "--force_impl", "pallas", "--gravity_stride", "4", "--softened_virial",
+     "--device", "cpu"],
 ])
 def test_same_config_as_jax(argv):
     """The same argv gives the same SimConfig in both packages (--device
@@ -67,7 +70,6 @@ def test_same_config_as_jax(argv):
 @pytest.mark.parametrize("flags", [
     ["--mesh_shape", "2,2"], ["--force_impl", "sharded"],
     ["--force_impl", "ring"], ["--orbax_dir", "ob"],
-    ["--gravity_stride", "2"],
 ])
 def test_not_ported_flags_refused_before_any_run(flags, tmp_path,
                                                  monkeypatch):
@@ -76,6 +78,38 @@ def test_not_ported_flags_refused_before_any_run(flags, tmp_path,
         cli.main(["-n", "8", "-rc", "1", "-f", "x", "--device", "cpu"]
                  + flags)
     assert os.listdir(tmp_path) == []
+
+
+def test_gravity_stride_runs_on_cpu(tmp_path, monkeypatch):
+    """--gravity_stride 4 on a stride-capable path (the kernel path's
+    plain versions on the CPU, hermite4_block) runs the strides: every
+    save of the 1000 steps is written, 200 strides ran (each save chunk
+    of 9 steps is 2 strides and a plain step), and the clock lands on
+    t_f."""
+    import importlib
+
+    # the module (sim/__init__ re-exports a function `step`)
+    port_step = importlib.import_module("al26_tpu_torch.sim.step")
+    strides = []
+    real = port_step.run_strides_cached
+
+    def counted(*args, **kwargs):
+        strides.append(args[4])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(port_step, "run_strides_cached", counted)
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["-n", "16", "-rc", "0.5", "--seed", "3", "--dtype",
+                     "f64", "-t_f", "0.005", "-f", "str", "--integrator",
+                     "hermite4_block", "--force_impl", "pallas",
+                     "--gravity_stride", "4", "--device", "cpu"]) == 0
+    assert sum(strides) == 100 * 2
+    states = sorted(glob.glob("str-state-*.pkl.zst"))
+    assert len(states) == 102
+    st = load_state(states[-1])
+    assert st.metadata.args.gravity_stride == 4
+    c = cluster_to_numpy(particles_to_cluster(st.cluster, device="cpu"))
+    assert np.isfinite(c["pos"]).all()
 
 
 def test_cli_runs_resumes_and_extends_on_cpu(tmp_path, monkeypatch,

@@ -250,17 +250,22 @@ def test_ensemble_driver_grid_resume_and_postprocess(tmp_path):
 
 def test_refusals_come_before_any_run(tmp_path):
     """What is not ported raises NotImplementedError naming its ROADMAP
-    item before anything is written; a cuda run without a card raises."""
+    item before anything is written; the gravity stride is ported for
+    single runs, and an ensemble refuses it with the JAX package's
+    ValueError; a cuda run without a card raises."""
     with _Cwd(tmp_path):
         for extra in ({"mesh_shape": (2,)}, {"force_impl": "sharded"},
-                      {"force_impl": "ring"}, {"orbax_dir": "ob"},
-                      {"gravity_stride": 2}):
+                      {"force_impl": "ring"}, {"orbax_dir": "ob"}):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 driver.run(TConfig(n=8, filename="x", **extra),
                            progress=False, device="cpu")
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 driver.run_ensemble(TConfig(n=8, ensemble=2, **extra),
                                     progress=False, device="cpu")
+        driver.check_ported(TConfig(n=8, gravity_stride=2))
+        with pytest.raises(ValueError, match="perf-ladder flags"):
+            driver.run_ensemble(TConfig(n=8, ensemble=2, gravity_stride=2),
+                                progress=False, device="cpu")
         assert os.listdir(".") == []
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="no CUDA device"):

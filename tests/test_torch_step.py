@@ -116,10 +116,13 @@ def test_not_ported_backends_raise():
             port_step.step(ts, ta, tcfg, force_impl=fi)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_step.step(ts, ta, tcfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_step.run_steps(ts, ta, tcfg.replace(
-            integrator="hermite4_block", k_fast=8, gravity_stride=2), 2,
-            force_impl="pallas")
+    # the gravity stride is ported: run_steps engages it on this path
+    strided = tcfg.replace(integrator="hermite4_block", k_fast=8,
+                           gravity_stride=2)
+    assert port_step.stride_active(strided, 32, ts.cluster.pos.dtype,
+                                   "cpu", None, "pallas")
+    s2 = port_step.run_steps(ts, ta, strided, 2, force_impl="pallas")
+    assert int(s2.step_count) == 2 and torch.isfinite(s2.cluster.pos).all()
     # the trajectory runner is ported: one row a step
     _, rows = port_step.run_steps_traj(ts, ta, tcfg, 2)
     assert rows.shape == (2, 6)
