@@ -7,9 +7,11 @@ choices), plus `--device` (default cuda: where the run computes, the
 port's counterpart of JAX_PLATFORMS; a cuda run on a machine without a
 card raises, it never falls back to the CPU). Run as
 `python -m al26_tpu_torch.cli ...` or via the `al26-nbody-torch` console
-entry point. The flags of what is not ported yet — --mesh_shape,
---force_impl sharded|ring, --orbax_dir — are refused before any run
-starts (sim.driver.check_ported).
+entry point. A device mesh (--mesh_shape D, --force_impl
+sharded|ring|tree, an ensemble's E,R) runs one rank per device:
+`torchrun --nproc_per_node D -m al26_tpu_torch.cli --mesh_shape D ...`
+(--device cuda then means cuda:LOCAL_RANK); a plain process runs a mesh
+of one device.
 """
 from __future__ import annotations
 
@@ -105,19 +107,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "under the reload directory)")
     p.add_argument("--mesh_shape", type=_mesh_shape, default=None,
                    metavar="D[,D...]",
-                   help="Device mesh for row-sharding ONE large run across "
-                        "chips, e.g. '8' or '2,4' (star count must divide "
-                        "across the devices). With --ensemble > 1, a "
-                        "2-tuple 'E,R' lays realizations across E chips "
-                        "and row-shards each realization's force sweep "
-                        "across R")
+                   help="Device mesh for splitting ONE large run's force "
+                        "sweeps by rows across devices, one rank each "
+                        "(torchrun --nproc_per_node D), e.g. '4' (star "
+                        "count must divide across the devices). With "
+                        "--ensemble > 1, a 2-tuple 'E,R' lays realizations "
+                        "across E ranks and splits each realization's "
+                        "force sweep across R")
     p.add_argument("--force_impl", type=str, default="auto",
                    choices=("auto", "pallas", "sharded", "ring", "default",
                             "tree"),
                    help="Pairwise force backend (auto: the CUDA direct-sum "
                         "kernels on a card in f32, plain torch otherwise; "
-                        "pallas = the kernels; sharded / ring: not ported "
-                        "yet; tree = opt-in "
+                        "pallas = the kernels; sharded / ring = the "
+                        "row-split / ring-streamed sweeps under a mesh; "
+                        "tree = opt-in "
                         "Barnes-Hut monopole tier (the reference BHTree's "
                         "algorithmic class; leapfrog at small N, "
                         "block-timestep Hermite over tree acc+jerk above "
@@ -174,10 +178,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_validate", dest="validate", action="store_false",
                    help="Disable state invariant checks at checkpoints")
     p.add_argument("--orbax_dir", type=str, default=None,
-                   help="Also write an orbax device-state checkpoint tree "
-                        "at every save (sharded arrays store per-host "
-                        "without gathering; fast resume for multi-host "
-                        "mesh-sharded runs)")
+                   help="Also write the device state as a "
+                        "torch.distributed.checkpoint tree at every save "
+                        "(every rank takes part; the resume path of mesh "
+                        "runs; it does not read the JAX package's orbax "
+                        "trees)")
     p.add_argument("--yields_rewrite", dest="yields_frames",
                    action="store_false",
                    help="Rewrite the whole reference-format yields blob at "
@@ -276,9 +281,6 @@ def config_from_args(args: argparse.Namespace):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    from .sim.driver import check_ported
-
-    check_ported(cfg)
     if cfg.ensemble > 1:
         from .sim.driver import run_ensemble
 
@@ -287,6 +289,7 @@ def main(argv=None) -> int:
         print(f"{len(sim_dirs)} realizations in {sim_dirs[0]} ...")
         if cfg.verbose:
             print(f"wall time: {wall:.1f} s")
+        _close_world()
         return 0
     from .sim.driver import run
 
@@ -294,7 +297,16 @@ def main(argv=None) -> int:
     print("!!! Finished !!!")
     if cfg.verbose:
         print(f"wall time: {result.wall_time_s:.1f} s")
+    _close_world()
     return 0
+
+
+def _close_world() -> None:
+    """End the process group a mesh run initialised."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -204,28 +204,28 @@ class SimConfig:
     metallicity: float = 0.02          # stellar evolution Z (al26_nbody.py:467)
 
     # -- parallel ----------------------------------------------------
-    ensemble: int = 1                  # cluster realizations (ensembles:
-    #                                     not ported yet)
-    mesh_shape: Optional[tuple] = None # device mesh for row-sharding a
-    #   single large run (None = one chip). With --ensemble > 1 a 2-tuple
-    #   (E, R) means an ens x rows mesh instead: realizations across E
-    #   chips, EACH realization's force sweep row-sharded across R
+    ensemble: int = 1                  # cluster realizations
+    mesh_shape: Optional[tuple] = None # device mesh (one rank a device,
+    #   torch.distributed) splitting a single large run's force sweeps by
+    #   rows (None = one device; parallel.sharded). With --ensemble > 1 a
+    #   2-tuple (E, R) means an ens x rows mesh instead: realizations
+    #   across E ranks, EACH realization's force sweep split across R
     #   (parallel.ensemble.ensemble_step_2d — for ensembles with fewer
-    #   members than chips)
-    orbax_dir: Optional[str] = None    # when set, ALSO write an orbax
-    #   device-state checkpoint tree at every save (io.orbax_backend):
-    #   sharded arrays store per-host without gathering — the fast resume
-    #   path for mesh-sharded multi-host runs. Reference-format files keep
-    #   being written for the analysis pipeline.
+    #   members than devices)
+    orbax_dir: Optional[str] = None    # when set, ALSO write the SimState
+    #   as a torch.distributed.checkpoint tree at every save
+    #   (io.orbax_backend; the JAX package's orbax trees are not read).
+    #   Reference-format files keep being written for the analysis
+    #   pipeline.
     force_impl: str = "auto"           # pairwise force backend:
     #   "auto" (the CUDA kernels on a CUDA device in f32, else plain
     #   torch), "pallas" (the direct-sum kernel path: ops.cuda_nbody, the
     #   name kept so config dicts stay interchangeable with al26_tpu) |
     #   "default" | "tree" (the opt-in Barnes-Hut tier, ops.tree: near
     #   field through the kernel of ops.cuda_tree on a CUDA device in f32)
-    #   — see sim.step._build_force_fn. "sharded" | "ring" (and a tree
-    #   under a mesh) are al26_tpu backends not ported yet; sim.step and
-    #   sim.init raise NotImplementedError for them.
+    #   — see sim.step._build_force_fn; under a mesh "sharded" (the
+    #   default of "auto") | "ring" | "tree" (parallel.sharded, .ring,
+    #   .tree_mesh).
     tree_theta: float = 0.75           # Barnes-Hut opening angle (the
     #   reference BHTree default, al26_nbody.py:59,1712-1714) for the
     #   conservative geometric block-level MAC.

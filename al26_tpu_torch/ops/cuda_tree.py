@@ -32,7 +32,7 @@ once (the JAX form r2 - eps2 + pot_eps2 cancels in f32).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -122,7 +122,8 @@ def item_bound(b: int, budget: int, item_pairs: int) -> int:
 
 
 def near_items(p2p, kavg: int, n_true: int, leaf: int,
-               item_pairs: int | None = None) -> NearItems:
+               item_pairs: int | None = None,
+               part: Tuple[int, int] | None = None) -> NearItems:
     """The work items of the packed pair list of `p2p` (pack_pair_list,
     so the budget and overflow are the JAX package's): every listed pair
     whose source block holds a real star (s * leaf < n_true), each target
@@ -130,7 +131,15 @@ def near_items(p2p, kavg: int, n_true: int, leaf: int,
     ITEM_PAIRS) source blocks. The list is target-major with ascending
     sources, and padding blocks come last, so a target's kept pairs are
     the head of its run. Built on the device of p2p; nothing is read back
-    to the host."""
+    to the host.
+
+    part=(rank, world): the items of rank `rank`'s share only, for the
+    tree mesh (parallel.tree_mesh). The items, in list order, are cut into
+    `world` runs of about equal PAIR counts (partner counts are
+    heavy-tailed, so equal item counts would not balance); every item
+    outside this rank's run keeps its slot with no pairs, so it writes
+    zeros. The table keeps its shape and every target its items, and the
+    sum of the ranks' results is the whole near field."""
     from .tree import pack_pair_list
 
     s = ITEM_PAIRS if item_pairs is None else int(item_pairs)
@@ -155,6 +164,13 @@ def near_items(p2p, kavg: int, n_true: int, leaf: int,
     k = torch.arange(n_items, device=dev) - torch.cat([first, total])[owner]
     p0 = torch.cat([start, zero])[owner] + k * s
     npairs = torch.clamp(torch.cat([kept, zero])[owner] - k * s, 0, s)
+    if part is not None:
+        rank, world = part
+        # item i's share: where its first pair falls among all kept pairs
+        lead = torch.cumsum(npairs, 0) - npairs
+        total = torch.clamp(npairs.sum(), min=1)
+        share = torch.clamp(lead * world // total, max=world - 1)
+        npairs = torch.where(share == rank, npairs, 0)
     item = torch.stack([owner, p0, npairs]).to(torch.int32).contiguous()
     tinfo = torch.stack([first, chunks]).to(torch.int32).contiguous()
     return NearItems(sj.contiguous(), item, tinfo, kept.to(torch.int32),
@@ -205,18 +221,19 @@ def pair_sums(pos_s, mass_s, ti, sj, n_true: int, eps2, pot_eps2=None,
 
 def near_field_plain(pos_s, mass_s, p2p, n_true: int, eps2, *, leaf: int,
                      kavg: int, g: float = G_INTERNAL, pot_eps2=None,
-                     vel_s=None, with_jerk: bool = False):
+                     vel_s=None, with_jerk: bool = False, part=None):
     """What the near-field kernel computes, in plain PyTorch, in the dtype
     of its inputs: (acc [B,L,3], jerk [B,L,3] | None, pot [B,L],
     overflow). The swept pairs of near_items are evaluated in chunks of
     [C, L, L] exact tiles (pair_sums), added to their work items in list
     order and the items to their target blocks in item order (index_add_),
     then scaled by G. It reads the item count back to the host, so it is
-    for the CPU path and for comparisons, not for a step loop on a card."""
+    for the CPU path and for comparisons, not for a step loop on a card.
+    `part` as in near_items: one rank's share of the items."""
     _check_args(pos_s, mass_s, p2p, leaf, vel_s, with_jerk)
     b, L, _ = pos_s.shape
     device = pos_s.device
-    it = near_items(p2p, kavg, n_true, leaf)
+    it = near_items(p2p, kavg, n_true, leaf, part=part)
     n_real = int(it.tinfo[1].sum())
     owner = it.item[0, :n_real].long()
     npairs = it.item[2, :n_real].long()
@@ -242,14 +259,15 @@ def near_field_plain(pos_s, mass_s, p2p, n_true: int, eps2, *, leaf: int,
 
 def near_field_launcher(pos_s, mass_s, p2p, n_true: int, eps2, *,
                         leaf: int, kavg: int, g: float = G_INTERNAL,
-                        pot_eps2=None, vel_s=None, with_jerk: bool = False):
+                        pot_eps2=None, vel_s=None, with_jerk: bool = False,
+                        part=None):
     """One kernel-3 launch of checked CUDA tensors: the f32 inputs, the
     work items (near_items), the outputs, the partial slabs and the ctypes
     arguments are made here, once. Returns (launch, (acc, jerk | None,
     pot, overflow)), all f32: launch() issues the kernel and its ordered
     sum on the current stream through one ctypes call and returns the
     CUDA error. near_field calls it once; a timer may call launch() many
-    times, rewriting the same outputs."""
+    times, rewriting the same outputs. `part` as in near_items."""
     if leaf > MAX_LEAF:
         raise ValueError(f"leaf={leaf}: the near-field kernel takes at most "
                          f"{MAX_LEAF} stars per block")
@@ -257,7 +275,7 @@ def near_field_launcher(pos_s, mass_s, p2p, n_true: int, eps2, *,
     pos32 = pos_s.to(f32).contiguous()
     mass32 = mass_s.to(f32).contiguous()
     vel32 = vel_s.to(f32).contiguous() if with_jerk else None
-    it = near_items(p2p, kavg, n_true, leaf)
+    it = near_items(p2p, kavg, n_true, leaf, part=part)
     n_items = it.item.shape[1]
     acc = torch.empty((b, leaf, 3), dtype=f32, device=device)
     jerk = torch.empty_like(acc) if with_jerk else None
@@ -283,23 +301,24 @@ def near_field_launcher(pos_s, mass_s, p2p, n_true: int, eps2, *,
 
 def near_field(pos_s, mass_s, p2p, n_true: int, eps2, *, leaf: int,
                kavg: int, g: float = G_INTERNAL, pot_eps2=None, vel_s=None,
-               with_jerk: bool = False):
+               with_jerk: bool = False, part=None):
     """Kernel 3: (acc [B,L,3], jerk [B,L,3] | None, pot [B,L], overflow)
     of the sorted, padded leaf blocks over the MAC-failing pairs of `p2p`
     — the contract of pallas_p2p_near_field. CPU tensors take
-    near_field_plain."""
+    near_field_plain. `part=(rank, world)`: only that rank's share of the
+    work items (near_items), for the tree mesh."""
     _check_args(pos_s, mass_s, p2p, leaf, vel_s, with_jerk)
     device = pos_s.device
     if device.type == "cpu":
         return near_field_plain(pos_s, mass_s, p2p, n_true, eps2, leaf=leaf,
                                 kavg=kavg, g=g, pot_eps2=pot_eps2,
-                                vel_s=vel_s, with_jerk=with_jerk)
+                                vel_s=vel_s, with_jerk=with_jerk, part=part)
     if device.type != "cuda":
         raise ValueError(f"near_field runs on cuda or cpu, not {device}")
     dtype = pos_s.dtype
     launch, (acc, jerk, pot, overflow) = near_field_launcher(
         pos_s, mass_s, p2p, n_true, eps2, leaf=leaf, kavg=kavg, g=g,
-        pot_eps2=pot_eps2, vel_s=vel_s, with_jerk=with_jerk)
+        pot_eps2=pot_eps2, vel_s=vel_s, with_jerk=with_jerk, part=part)
     err = launch()
     if err != 0:
         raise RuntimeError(f"near_field launch failed: cudaError {err}")

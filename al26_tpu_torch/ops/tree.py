@@ -396,19 +396,24 @@ def tree_acc_jerk_pot(
     near_acc, near_jerk, near_pot, overflow = near_fn(
         tree.pos_s, tree.mass_s, p2p, n, eps2, leaf=leaf, kavg=kavg, g=g,
         pot_eps2=pot_eps2, vel_s=tree.vel_s, with_jerk=with_jerk)
-    acc_s = (far_acc + near_acc).reshape(-1, 3)
-    pot_s = (far_pot + near_pot).reshape(-1)
+    acc, jerk, pot = unsort(
+        tree, far_acc + near_acc,
+        far_jerk + near_jerk if with_jerk else None, far_pot + near_pot, n)
+    return acc, jerk, pot, overflow
 
-    # unsort: slot of each original index (padding slots hold gidx >= n)
+
+def unsort(tree: BlockTree, acc_s, jerk_s, pot_s, n: int):
+    """Block-layout results [B, L, ...] back in the original star order:
+    (acc [N,3], jerk [N,3] | None, pot [N]); padding slots (gidx >= n)
+    are dropped."""
+    acc_s = acc_s.reshape(-1, 3)
     npad = acc_s.shape[0]
-    inv = torch.empty(npad, dtype=torch.int64, device=pos.device)
+    inv = torch.empty(npad, dtype=torch.int64, device=acc_s.device)
     inv.scatter_(0, tree.gidx_s.reshape(-1),
-                 torch.arange(npad, device=pos.device))
+                 torch.arange(npad, device=acc_s.device))
     inv = inv[:n]
-    jerk = None
-    if with_jerk:
-        jerk = (far_jerk + near_jerk).reshape(-1, 3)[inv]
-    return acc_s[inv], jerk, pot_s[inv], overflow
+    jerk = None if jerk_s is None else jerk_s.reshape(-1, 3)[inv]
+    return acc_s[inv], jerk, pot_s.reshape(-1)[inv]
 
 
 def tree_acc_pot(pos, mass, eps2=0.0, g: float = G_INTERNAL, *,

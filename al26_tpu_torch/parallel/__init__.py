@@ -1,4 +1,5 @@
-"""Parallel axes of the port. Single-device flattened ensembles
-(`ensemble`); the device-mesh axes (sharded rows, the ring, the tree mesh,
-the 2-D ensemble mesh) are not ported yet (ROADMAP queue 1, item 8)."""
+"""Parallel axes of the port: flattened ensembles on one device
+(`ensemble`), and the device-mesh axes on torch.distributed: row-split
+sweeps (`sharded`), ring-streamed sweeps (`ring`), the tree mesh
+(`tree_mesh`) and the 1-D and 2-D ensemble meshes (`ensemble`)."""
 from . import ensemble

@@ -24,12 +24,25 @@ on one device:
 N counts an interloper when the config has one (the group size is the
 realization's star count, state.cluster.mass.shape[1]).
 
-The device-mesh entry points (the 1-D and 2-D ensemble meshes) raise
-NotImplementedError naming ROADMAP queue 1, item 8.
+The device meshes (torch.distributed, one rank per device; see
+parallel.sharded's docstring):
+
+  * the 1-D ensemble mesh ("ens", `make_ensemble_mesh`): `shard_ensemble`
+    hands each rank its B/D realizations, which it runs as its own
+    flattened ensemble (kernel 1b), with no collective inside a step;
+  * the 2-D (ens x rows) mesh (`make_ensemble2d_mesh`): each rank holds
+    the whole state of its B/E realizations (`shard_ensemble_2d`), and
+    each realization's sweep splits its rows over the R ranks of the rows
+    axis (`ensemble2d_acc_pot`: kernel 1b on this rank's row ids of every
+    local realization, then an all-gather over the rows group);
+    `ensemble_step_2d` is leapfrog only, as in the JAX package.
+
+Deliberate difference from the JAX package: its shard_ensemble returns
+the whole batch laid out over the mesh; the port's returns this rank's
+realizations (`gather_ensemble` collects the whole batch on every rank).
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -37,39 +50,21 @@ import torch
 
 from ..config import SimConfig
 from ..ops import cuda_nbody
-from ..ops.integrators import advance
+from ..ops.integrators import advance, leapfrog_advance
 from ..ops.nbody import (
-    acc_jerk_pot_dense, acc_pot_dense, mass_delta_correction,
+    _row_block_acc_jerk_pot, acc_jerk_pot_dense, acc_pot_dense,
+    mass_delta_correction,
 )
 from ..sim.init import init_cluster, resolve_integrator
 from ..sim.step import physics_after_advance, step
+from ..state import map_tensors
 from ..units import G_INTERNAL
+from .sharded import (
+    all_gather_cat, axis_rank, device_mesh, kernel_here, mesh_device,
+)
 
-_MESH_TODO = ("ROADMAP queue 1, item 8 (the multi-device axes on "
-              "torch.distributed)")
-
-
-def _mesh_not_ported(name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} (an ensemble on a device mesh) is not ported yet "
-            f"({_MESH_TODO})")
-
-    fn.__name__ = name
-    fn.__doc__ = f"Not ported yet: raises NotImplementedError ({_MESH_TODO})."
-    return fn
-
-
-make_ensemble_mesh = _mesh_not_ported("make_ensemble_mesh")
-make_ensemble2d_mesh = _mesh_not_ported("make_ensemble2d_mesh")
-shard_ensemble = _mesh_not_ported("shard_ensemble")
-shard_ensemble_2d = _mesh_not_ported("shard_ensemble_2d")
-ensemble2d_acc_pot = _mesh_not_ported("ensemble2d_acc_pot")
-ensemble_step_2d = _mesh_not_ported("ensemble_step_2d")
-ensemble2d_fresh_cache = _mesh_not_ported("ensemble2d_fresh_cache")
-ensemble_run_steps_2d_cached = _mesh_not_ported(
-    "ensemble_run_steps_2d_cached")
-ensemble_run_steps_2d = _mesh_not_ported("ensemble_run_steps_2d")
+ENS_AXIS = "ens"
+ROWS_AXIS = "rows"
 
 
 # ---------------------------------------------------------------------------
@@ -77,24 +72,13 @@ ensemble_run_steps_2d = _mesh_not_ported("ensemble_run_steps_2d")
 # the stellar PhaseTable (a NamedTuple)
 # ---------------------------------------------------------------------------
 
-def _map(fn, *trees):
-    """fn over the tensors of structurally equal states / auxes."""
-    x = trees[0]
-    if isinstance(x, torch.Tensor):
-        return fn(*trees)
-    if isinstance(x, tuple):
-        return type(x)(*(_map(fn, *ys) for ys in zip(*trees)))
-    return type(x)(**{f.name: _map(fn, *(getattr(t, f.name) for t in trees))
-                      for f in dataclasses.fields(x)})
-
-
 def _take(tree, k: int):
     """Realization k of a batched state or aux."""
-    return _map(lambda t: t[k], tree)
+    return map_tensors(lambda t: t[k], tree)
 
 
 def _stack(trees):
-    return _map(lambda *ts: torch.stack(ts), *trees)
+    return map_tensors(lambda *ts: torch.stack(ts), *trees)
 
 
 def init_ensemble(cfg: SimConfig, n_realizations: int,
@@ -149,7 +133,7 @@ def stack_ensemble(states, auxes, *, device):
                        msrc_valid=pad(a.msrc_valid, width_m))
              for a in auxes]
     move = lambda *ts: torch.stack([t.cpu() for t in ts]).to(device)
-    return _map(move, *states), _map(move, *auxes)
+    return map_tensors(move, *states), map_tensors(move, *auxes)
 
 
 def ensemble_step(batch_state, batch_aux, cfg: SimConfig):
@@ -396,4 +380,223 @@ def ensemble_run_steps(batch_state, batch_aux, cfg: SimConfig, n_steps: int,
             batch_state = ensemble_step_flat(batch_state, batch_aux, cfg)
         else:
             batch_state = ensemble_step(batch_state, batch_aux, cfg)
+    return batch_state
+
+
+# ---------------------------------------------------------------------------
+# the device meshes: the 1-D ensemble mesh and the 2-D (ens x rows) mesh
+# ---------------------------------------------------------------------------
+
+def make_ensemble_mesh(n_devices: Optional[int] = None, device="cuda"):
+    """1-D ensemble mesh ("ens") of `n_devices` ranks (default: the whole
+    world, or a world of one in a plain process)."""
+    import torch.distributed as dist
+
+    if n_devices is None:
+        n_devices = dist.get_world_size() if dist.is_initialized() else 1
+    return device_mesh((n_devices,), (ENS_AXIS,), device)
+
+
+def make_ensemble2d_mesh(n_ens: int, n_rows: Optional[int] = None,
+                         device="cuda"):
+    """2-D (ens x rows) mesh: realizations across `n_ens` ranks, EACH
+    realization's sweep split by rows across `n_rows` ranks — for
+    ensembles with fewer members than devices. n_rows defaults to the
+    world size // n_ens."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_ens < 1:
+        raise ValueError(f"mesh needs n_ens >= 1 (got {n_ens})")
+    if n_rows is None:
+        n_rows = world // n_ens
+    if n_rows < 1:
+        raise ValueError(
+            f"mesh ({n_ens} ens x {n_rows} rows) is degenerate: need at "
+            f"least 1 device per axis ({world} ranks; with n_ens > the "
+            "rank count use the 1-D ensemble mesh instead)")
+    return device_mesh((n_ens, n_rows), (ENS_AXIS, ROWS_AXIS), device)
+
+
+def _ens_share(b: int, mesh):
+    """This rank's realizations along the ens axis: slice(e B/E,
+    (e+1) B/E)."""
+    e, n_ens = axis_rank(mesh, ENS_AXIS)
+    if b % n_ens:
+        raise ValueError(f"ensemble size {b} must divide across the "
+                         f"{n_ens} ranks of the ens axis")
+    per = b // n_ens
+    return slice(e * per, (e + 1) * per)
+
+
+def shard_ensemble(batch_state, batch_aux, mesh):
+    """This rank's B/D realizations of a stacked ensemble, on its device:
+    each rank then runs its share as its own flattened ensemble."""
+    sl = _ens_share(batch_state.cluster.mass.shape[0], mesh)
+    device = mesh_device(mesh)
+    place = lambda t: t[sl].to(device)
+    return map_tensors(place, batch_state), map_tensors(place, batch_aux)
+
+
+def shard_ensemble_2d(batch_state, batch_aux, mesh):
+    """This rank's B/E realizations on a 2-D (ens x rows) mesh, whole
+    (every rank of a rows group holds the same realizations; only the
+    sweep splits over the rows axis), on its device."""
+    return shard_ensemble(batch_state, batch_aux, mesh)
+
+
+def gather_ensemble(batch_state, mesh):
+    """The whole batch on every rank: each rank's realizations gathered
+    over the ens axis, in realization order."""
+    _, n_ens = axis_rank(mesh, ENS_AXIS)
+    group = mesh.get_group(ENS_AXIS)
+    return map_tensors(lambda t: all_gather_cat(t, group, n_ens), batch_state)
+
+
+def _ensemble2d_local(rank: int, world: int, pos, vel, mass, eps2,
+                      pot_eps2=None, with_pot: bool = True,
+                      use_kernel: bool | None = None):
+    """Local body of the 2-D mesh's sweep: for each of the b realizations
+    (pos/vel [b, N, 3], mass [b, N]) the rows [r N/R, (r+1) N/R) of rank
+    `rank` of the rows axis against that realization's N stars. On the
+    kernel path one kernel-1b launch: rows b N + r N/R + arange(N/R) of
+    the flattened ensemble, group_size = N (the windows keep realizations
+    apart); the plain row block per realization elsewhere. Returns
+    (acc [b, N/R, 3], pot [b, N/R])."""
+    b, n = mass.shape
+    if n % world:
+        raise ValueError(f"star count {n} must divide across the {world} "
+                         "ranks of the rows axis")
+    n_l = n // world
+    sl = slice(rank * n_l, (rank + 1) * n_l)
+    rows = torch.arange(rank * n_l, (rank + 1) * n_l, dtype=torch.int32,
+                        device=pos.device)
+    if kernel_here(pos.reshape(b * n, 3), use_kernel):
+        ids = (rows[None, :] + (torch.arange(b, device=pos.device,
+                                             dtype=torch.int32)
+                                * n)[:, None]).reshape(-1)
+        a, _, p = cuda_nbody.kernel_acc_jerk_pot_rows(
+            pos[:, sl].reshape(-1, 3), vel[:, sl].reshape(-1, 3), ids,
+            pos.reshape(-1, 3), vel.reshape(-1, 3), mass.reshape(-1),
+            float(eps2), with_jerk=False, group_size=n, pot_eps2=pot_eps2,
+            with_pot=with_pot)
+        return a.reshape(b, n_l, 3), p.reshape(b, n_l)
+    outs = [_row_block_acc_jerk_pot(
+        pos[k, sl], vel[k, sl], pos[k], vel[k], mass[k], eps2, G_INTERNAL,
+        rows, pot_eps2=pot_eps2, with_jerk=False, with_pot=with_pot)
+        for k in range(b)]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[2] for o in outs]))
+
+
+def ensemble2d_acc_pot(pos, vel, mass, mesh, eps2, pot_eps2=None,
+                       with_pot: bool = True):
+    """Per-realization (acc [b, N, 3], pot [b, N]) of this rank's b
+    realizations on a 2-D (ens x rows) mesh: this rank's row slice of
+    each (_ensemble2d_local), all-gathered over the rows group only —
+    realizations never mix."""
+    rank, world = axis_rank(mesh, ROWS_AXIS)
+    group = mesh.get_group(ROWS_AXIS)
+    a, p = _ensemble2d_local(rank, world, pos, vel, mass, eps2, pot_eps2,
+                             with_pot)
+    return (all_gather_cat(a, group, world, dim=1),
+            all_gather_cat(p, group, world, dim=1))
+
+
+def ensemble_step_2d(batch_state, batch_aux, cfg: SimConfig, mesh,
+                     cache=None, want_cache: bool = False):
+    """One physics step of this rank's realizations on a 2-D (ens x rows)
+    mesh: the leapfrog's force substeps through the row-split sweep
+    (ensemble2d_acc_pot), the steps after the advance per realization.
+    Leapfrog only, as the ensemble boundary resolves "auto"
+    (init_ensemble).
+
+    `cache=(acc [b,N,3], pot [b,N])` replaces the opening sweep with the
+    previous step's closing evaluation (exact for leapfrog: the closing
+    evaluation is at the final positions, and the mass-delta correction
+    covers this step's mass loss). With want_cache the step returns
+    (state, new_cache)."""
+    integ = _resolve_ens_integ(cfg)
+    if integ != "leapfrog":
+        raise ValueError(
+            f"ensemble_step_2d supports the ensemble-default leapfrog only "
+            f"(got integrator={integ!r}); run with integrator='auto' or "
+            "'leapfrog'")
+    c = batch_state.cluster
+    b, n = c.mass.shape
+    dtype, device = c.pos.dtype, c.pos.device
+    dt = torch.as_tensor(cfg.dt, dtype=dtype, device=device)
+    eps2 = torch.as_tensor(cfg.eps2, dtype=dtype, device=device)
+
+    # ONE sweep: the step-start forces and the raw potential of each
+    # realization's virial radius, or the previous step's closing one
+    if cache is not None:
+        a0, pot = cache
+    else:
+        a0, pot = ensemble2d_acc_pot(c.pos, c.vel, c.mass, mesh, cfg.eps2,
+                                     pot_eps2=1e-30)
+    u = 0.5 * torch.sum(c.mass * pot, dim=1)                        # [B]
+    mtot = torch.sum(c.mass, dim=1)                                 # [B]
+    r_vir = -G_INTERNAL * mtot * mtot / (2.0 * u)
+
+    def acc_fn(p):
+        a, _ = ensemble2d_acc_pot(p, torch.zeros_like(p), c.mass, mesh,
+                                  cfg.eps2, with_pot=False)
+        return a
+
+    final_eval_fn = None
+    if want_cache:
+        def final_eval_fn(p):
+            return ensemble2d_acc_pot(p, torch.zeros_like(p), c.mass, mesh,
+                                      cfg.eps2, pot_eps2=1e-30)
+
+    out = leapfrog_advance(c.pos, c.vel, c.mass, dt,
+                           n_sub=cfg.leapfrog_n_sub or 16, eps2=eps2,
+                           acc_fn=acc_fn, init_acc=a0,
+                           final_eval_fn=final_eval_fn)
+    if want_cache:
+        pos_new, vel_new, (a1, _, pot1) = out
+    else:
+        pos_new, vel_new = out
+    out_state = ensemble_physics_after_advance(
+        batch_state, batch_aux, cfg, c.pos, pos_new, vel_new, r_vir)
+    if not want_cache:
+        return out_state
+    # mass-delta correction over the flattened mass-evolving sources (the
+    # linearity argument of sim.step, with the same-realization mask)
+    offs = torch.arange(b, dtype=batch_aux.msrc_idx.dtype, device=device)
+    src = (batch_aux.msrc_idx + (offs * n)[:, None]).reshape(-1)
+    valid = batch_aux.msrc_valid.reshape(-1)
+    mass_f = c.mass.reshape(b * n)
+    dm = (out_state.cluster.mass.reshape(b * n)[src] - mass_f[src]) * valid
+    a1f, _, pot1f = mass_delta_correction(
+        a1.reshape(b * n, 3), None, pot1.reshape(b * n),
+        pos_new.reshape(b * n, 3), vel_new.reshape(b * n, 3), src, dm, eps2,
+        group_size=n)
+    return out_state, (a1f.reshape(b, n, 3), pot1f.reshape(b, n))
+
+
+def ensemble2d_fresh_cache(batch_state, cfg: SimConfig, mesh):
+    """Opening (acc, pot) sweep that seeds the 2-D path's force cache."""
+    c = batch_state.cluster
+    return ensemble2d_acc_pot(c.pos, c.vel, c.mass, mesh, cfg.eps2,
+                              pot_eps2=1e-30)
+
+
+def ensemble_run_steps_2d_cached(batch_state, cache, batch_aux,
+                                 cfg: SimConfig, n_steps: int, mesh):
+    """n_steps 2-D steps carrying the force cache ACROSS calls (the driver
+    threads (state, cache) between checkpoint chunks). Returns (state,
+    cache)."""
+    for _ in range(n_steps):
+        batch_state, cache = ensemble_step_2d(batch_state, batch_aux, cfg,
+                                              mesh, cache, want_cache=True)
+    return batch_state, cache
+
+
+def ensemble_run_steps_2d(batch_state, batch_aux, cfg: SimConfig,
+                          n_steps: int, mesh):
+    """n_steps 2-D steps without the force cache."""
+    for _ in range(n_steps):
+        batch_state = ensemble_step_2d(batch_state, batch_aux, cfg, mesh)
     return batch_state

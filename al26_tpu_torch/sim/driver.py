@@ -1,5 +1,5 @@
 """Run driver: checkpointed simulation loop + resume (the port of
-al26_tpu/sim/driver.py, on one device).
+al26_tpu/sim/driver.py).
 
 Mirrors the reference `main()` control flow (al26_nbody.py:1612-1766):
 initialise (or reload) -> initial checkpoint #0 -> loop with a save every
@@ -21,9 +21,20 @@ more useful and format-identical).
 The files are the JAX package's (io.checkpoint): either package resumes
 the other's runs. `device` (default "cuda") is where the run computes; a
 "cuda" run on a machine without a card raises, it never falls back to the
-CPU. Not ported, and refused before anything runs (check_ported): device
-meshes (mesh_shape, force_impl "sharded" / "ring") and the orbax backend
-(orbax_dir).
+CPU.
+
+Device meshes (torch.distributed, one rank per device; launched with
+`torchrun --nproc_per_node D`, where "cuda" means cuda:LOCAL_RANK): a
+single run with mesh_shape=(D,) splits its pairwise work by rows over the
+D ranks (parallel.sharded; every rank holds the whole state), and an
+ensemble runs on the 1-D ensemble mesh (the world, when it divides the
+realizations) or, with mesh_shape=(E, R), on the 2-D (ens x rows) mesh
+(parallel.ensemble). Only rank 0 writes a single run's reference-format
+files and shows progress; on an ensemble mesh each realization's files
+are written by the rank that runs it (rank 0 of its rows group). With
+orbax_dir every save also writes the SimState as a DCP tree first
+(io.orbax_backend), which every rank takes part in. All ranks meet a
+barrier before they return.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import SimConfig
 from ..io import checkpoint as ckpt
@@ -41,43 +53,50 @@ from ..io import compression
 from ..io.compat import (Args, Converter, Metadata, Quantity,
                          cluster_to_particles, particles_to_cluster)
 from ..io.yields_store import Yields
+from ..parallel.sharded import local_device
 from ..state import SimState, cluster_to_numpy
 from ..units import myr
 from ..utils.timing import PhaseTimers, maybe_start_trace, maybe_stop_trace
 from .init import SimAux, init_cluster
 
-_NOT_PORTED = {
-    "mesh_shape": "ROADMAP queue 1, item 8 (the multi-device axes)",
-    "force_impl": "ROADMAP queue 1, item 8 (the multi-device axes)",
-    "orbax_dir": "ROADMAP queue 1, item 8 (io/orbax_backend.py)",
-}
-
-
-def check_ported(cfg: SimConfig) -> None:
-    """Refuse the options this port does not run yet, each naming its
-    ROADMAP item: a device mesh, the sharded / ring force backends and
-    the orbax checkpoint tree."""
-    bad = []
-    if cfg.mesh_shape:
-        bad.append(("mesh_shape", cfg.mesh_shape))
-    if cfg.force_impl in ("sharded", "ring"):
-        bad.append(("force_impl", cfg.force_impl))
-    if cfg.orbax_dir:
-        bad.append(("orbax_dir", cfg.orbax_dir))
-    if bad:
-        raise NotImplementedError("; ".join(
-            f"{k}={v!r} is not ported yet ({_NOT_PORTED[k]})"
-            for k, v in bad))
-
 
 def run_device(device) -> torch.device:
-    """The run's device; a CUDA device must exist (no CPU fallback)."""
+    """The run's device, "cuda" meaning cuda:LOCAL_RANK; a CUDA device
+    must exist (no CPU fallback)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device 'cuda' asked for, but torch finds no CUDA device; "
             "run on the CPU explicitly (device='cpu', --device cpu)")
-    return device
+    return local_device(device)
+
+
+def _lead() -> bool:
+    """Is this process rank 0 (or the only process)? Read before the
+    process group exists too, from torchrun's RANK."""
+    if dist.is_initialized():
+        return dist.get_rank() == 0
+    return int(os.environ.get("RANK", 0)) == 0
+
+
+def _barrier(mesh) -> None:
+    if mesh is not None:
+        dist.barrier()
+
+
+def _run_mesh(cfg: SimConfig, n_total: int, device):
+    """The 1-D row mesh of a single run with cfg.mesh_shape (None
+    without); the star count must divide across it."""
+    if not cfg.mesh_shape:
+        return None
+    from ..parallel.sharded import make_mesh
+
+    n_dev = int(np.prod(cfg.mesh_shape))
+    if n_total % n_dev != 0:
+        raise ValueError(
+            f"mesh_shape={cfg.mesh_shape}: star count {n_total} must "
+            f"divide across {n_dev} devices (pad n or change the mesh)")
+    return make_mesh(n_dev, device=device)
 
 
 @dataclass
@@ -242,7 +261,6 @@ def load_run(base: str, n_checkpoint: Optional[int] = None,
     )
     metadata.update_access_time()
     cfg = override_cfg or SimConfig.from_checkpoint_dict(vars(metadata.args))
-    check_ported(cfg)
     dtype = torch.float64 if cfg.dtype == "f64" else torch.float32
     cluster = particles_to_cluster(particles, dtype=dtype, device=device)
     host = cluster_to_numpy(cluster)
@@ -293,11 +311,13 @@ def _extend(cfg: SimConfig, extend_t: float, t_now: float, steps_done: int,
 
 def run(cfg: SimConfig, progress: bool = True,
         data_dir: Optional[str] = None, device="cuda") -> RunResult:
-    """Full checkpointed run (cold start or resume) on `device`."""
+    """Full checkpointed run (cold start or resume) on `device`; under
+    cfg.mesh_shape, this rank's part of the mesh run (module docstring)."""
     t_wall0 = time.time()
-    check_ported(cfg)
     device = run_device(device)
-    print(f"# checkpoint writer: {compression.writer()}")
+    lead = _lead()
+    if lead:
+        print(f"# checkpoint writer: {compression.writer()}")
 
     # capture BEFORE load_run replaces cfg with the checkpoint's restored
     # config (reference semantics, al26_nbody.py:1647) — whose own reload
@@ -319,14 +339,30 @@ def run(cfg: SimConfig, progress: bool = True,
         if extend_t is not None:
             cfg = _extend(cfg, extend_t, float(state.time),
                           int(state.step_count), [metadata])
+        # the stored run's mesh; every rank has read the files before
+        # rank 0 truncates them
+        mesh = _run_mesh(cfg, state.cluster.n, device)
+        _barrier(mesh)
         # continue writing at the PATH the user pointed at, not at
         # metadata.filename (which records only the original base NAME)
         base = reload_base
-        _bound_resumed_yields(yields, base, cfg, float(state.time))
-        # a -nc K resume rewrites checkpoints K+1... — drop the abandoned
-        # timeline's higher-numbered state files now
-        _drop_stale_state_files(base, metadata.most_recent_checkpoint)
+        if lead:
+            _bound_resumed_yields(yields, base, cfg, float(state.time))
+            # a -nc K resume rewrites checkpoints K+1... — drop the
+            # abandoned timeline's higher-numbered state files now
+            _drop_stale_state_files(base, metadata.most_recent_checkpoint)
+            if cfg.orbax_dir:
+                # same for the DCP tree, or its latest_step resumes the
+                # abandoned timeline
+                from ..io.orbax_backend import drop_steps_above
+
+                drop_steps_above(cfg.orbax_dir, int(state.step_count))
     else:
+        mesh = _run_mesh(cfg, cfg.n + int(cfg.interloper), device)
+        # a backend the mesh (or its absence) refuses, before any file
+        from .step import _check_backend
+
+        _check_backend(mesh, cfg.force_impl)
         state, aux, cfg = init_cluster(cfg, data_dir, device=device)
         metadata = _metadata_from_cfg(cfg)
         base = metadata.filename
@@ -335,15 +371,20 @@ def run(cfg: SimConfig, progress: bool = True,
         yields = Yields(base, bounded=bool(getattr(cfg, "yields_frames",
                                                    False)))
         # initial checkpoint #0 (al26_nbody.py:1741-1745)
-        _save(base, metadata, converter, yields, host, t0, cfg,
-              increment=False, verbose=cfg.verbose)
+        if lead:
+            _save(base, metadata, converter, yields, host, t0, cfg,
+                  increment=False, verbose=cfg.verbose)
+    if mesh is not None:
+        from ..parallel.sharded import shard_state_rows
+
+        state = shard_state_rows(state, mesh)
 
     n_done = int(state.step_count)
     n_steps = cfg.n_steps
     spp = cfg.steps_per_plot
 
     bar = None
-    if progress:
+    if progress and lead:
         try:
             from tqdm import tqdm
             bar = tqdm(total=cfg.final_time, desc="Simulation", unit="Myr",
@@ -354,7 +395,7 @@ def run(cfg: SimConfig, progress: bool = True,
     timers = PhaseTimers()
     maybe_start_trace()
     write_traj = cfg.interloper and cfg.interloper_trajectory
-    if write_traj:
+    if write_traj and lead:
         # cold run: clear a previous run's rows in this cwd; resume: drop
         # rows beyond the resumed checkpoint
         _reset_trajectory(float(state.time) if reload_base else None)
@@ -368,38 +409,39 @@ def run(cfg: SimConfig, progress: bool = True,
     )
 
     c = state.cluster
-    use_cache = _cacheable(cfg, c.n, c.pos.dtype, c.pos.device, None,
+    use_cache = _cacheable(cfg, c.n, c.pos.dtype, c.pos.device, mesh,
                            cfg.force_impl)
     # the stride's interior physics steps have no per-step row collection,
     # so trajectory runs stay unstrided (and cached)
     use_stride = (not write_traj) and stride_active(
-        cfg, c.n, c.pos.dtype, c.pos.device, None, cfg.force_impl)
+        cfg, c.n, c.pos.dtype, c.pos.device, mesh, cfg.force_impl)
     cache = [None]
 
     def seed_cache(s):
         if cache[0] is None:
             cache[0] = fresh_cache(s, cfg, _resolve_integ(cfg, s.cluster.n),
-                                   None, cfg.force_impl)
+                                   mesh, cfg.force_impl)
 
     def advance_steps(s, n):
         if write_traj:
             if use_cache:
                 seed_cache(s)
                 s, cache[0], rows = run_steps_traj_cached(
-                    s, cache[0], aux, cfg, n, None, cfg.force_impl)
+                    s, cache[0], aux, cfg, n, mesh, cfg.force_impl)
             else:
-                s, rows = run_steps_traj(s, aux, cfg, n,
-                                         force_impl=cfg.force_impl)
-            _append_trajectory(rows.cpu().numpy())
+                s, rows = run_steps_traj(s, aux, cfg, n, mesh,
+                                         cfg.force_impl)
+            if lead:
+                _append_trajectory(rows.cpu().numpy())
             return s
         if use_cache:
             seed_cache(s)
             runner = run_steps_cached_strided if use_stride \
                 else run_steps_cached
-            s, cache[0] = runner(s, cache[0], aux, cfg, n, None,
+            s, cache[0] = runner(s, cache[0], aux, cfg, n, mesh,
                                  cfg.force_impl)
             return s
-        return run_steps(s, aux, cfg, n, force_impl=cfg.force_impl)
+        return run_steps(s, aux, cfg, n, mesh, cfg.force_impl)
 
     # background checkpoint writer: host serialisation overlaps the next
     # chunk's device compute (ordering-preserving; errors re-raised here)
@@ -410,6 +452,13 @@ def run(cfg: SimConfig, progress: bool = True,
         writer = AsyncCheckpointWriter()
 
     def do_save(s, increment=True, final=False):
+        if cfg.orbax_dir:
+            # the DCP tree first, on every rank
+            from ..io.orbax_backend import save_sharded_state
+
+            save_sharded_state(cfg.orbax_dir, int(s.step_count), s, cfg)
+        if not lead:
+            return
         # the device-to-host copy on THIS thread: the writer thread only
         # ever sees numpy arrays
         host, t_myr = _host_copy(s)
@@ -466,9 +515,10 @@ def run(cfg: SimConfig, progress: bool = True,
     if bar is not None:
         bar.close()
     maybe_stop_trace()
-    if cfg.verbose:
+    if cfg.verbose and lead:
         print("phase timings:")
         print(timers.report())
+    _barrier(mesh)
 
     return RunResult(
         state=state, aux=aux, cfg=cfg, metadata=metadata, yields=yields,
@@ -518,6 +568,38 @@ def load_ensemble(tag_root: str, n_checkpoint: Optional[int] = None,
     return states, auxes, cfgs, metas, yieldses, converters, sim_dirs
 
 
+def _ensemble_mesh(cfg: SimConfig, n_real: int, n_stars: int, device):
+    """(kind, mesh) of an ensemble run: ("2d", the (ens x rows) mesh) for
+    a 2-tuple cfg.mesh_shape, ("1d", the ensemble mesh over the world)
+    when the process group spans several ranks, else (None, None)."""
+    from ..parallel.ensemble import make_ensemble2d_mesh, make_ensemble_mesh
+
+    if cfg.mesh_shape and len(cfg.mesh_shape) != 2:
+        # an explicit mesh request must not be silently ignored: ensembles
+        # take the 2-D (ens x rows) form only
+        raise ValueError(
+            f"mesh_shape={cfg.mesh_shape} with --ensemble: use a 2-tuple "
+            "'E,R' (realizations across E ranks, each realization's force "
+            "sweep row-split across R), or unset it for the ensemble mesh "
+            "over all ranks")
+    if cfg.mesh_shape:
+        n_ens, n_rows = cfg.mesh_shape
+        if n_real % n_ens != 0 or n_stars % n_rows != 0:
+            raise ValueError(
+                f"mesh_shape={cfg.mesh_shape}: ensemble size {n_real} must "
+                f"divide across {n_ens} and star count {n_stars} across "
+                f"{n_rows}")
+        return "2d", make_ensemble2d_mesh(n_ens, n_rows, device=device)
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        world = dist.get_world_size()
+        if n_real % world != 0:
+            raise ValueError(
+                f"ensemble size {n_real} must divide across the {world} "
+                "ranks of the ensemble mesh")
+        return "1d", make_ensemble_mesh(world, device=device)
+    return None, None
+
+
 def run_ensemble(cfg: SimConfig, progress: bool = True,
                  data_dir: Optional[str] = None, root: str = ".",
                  device="cuda"):
@@ -528,17 +610,23 @@ def run_ensemble(cfg: SimConfig, progress: bool = True,
     `pt-<rc>-<n>/pt-<rc>-<n>/pt-<k>/` (the layout plotting/postprocess.py
     walks). With cfg.reload set (a tag directory or any root containing
     the pt-<k> folders), every realization resumes from its most recent
-    checkpoint (or cfg.n_checkpoint). Returns (batch_state, sim_dirs,
-    wall seconds)."""
+    checkpoint (or cfg.n_checkpoint). On an ensemble mesh (_ensemble_mesh)
+    each rank steps its share of the realizations and writes their
+    folders (on the 2-D mesh, rank 0 of each rows group). Returns
+    (batch_state, sim_dirs, wall seconds); the whole batch on every rank."""
     from ..parallel.ensemble import (
-        ensemble_cacheable, ensemble_fresh_cache, ensemble_run_steps,
-        ensemble_run_steps_cached, init_ensemble, stack_ensemble,
+        ensemble2d_fresh_cache, ensemble_cacheable, ensemble_fresh_cache,
+        ensemble_run_steps, ensemble_run_steps_2d,
+        ensemble_run_steps_2d_cached, ensemble_run_steps_cached,
+        gather_ensemble, init_ensemble, shard_ensemble, stack_ensemble,
     )
+    from ..parallel.sharded import axis_rank
 
     t_wall0 = time.time()
-    check_ported(cfg)
     device = run_device(device)
-    print(f"# checkpoint writer: {compression.writer()}")
+    lead = _lead()
+    if lead:
+        print(f"# checkpoint writer: {compression.writer()}")
     if cfg.gravity_stride > 1 or cfg.softened_virial or cfg.k_ultra:
         # the opt-in perf ladder is a single-run capability; the ensemble
         # path runs BHTree-parity leapfrog with the raw-potential virial
@@ -563,33 +651,32 @@ def run_ensemble(cfg: SimConfig, progress: bool = True,
         )
     if cfg.reload:
         states, auxes, cfgs, metas, yieldses, converters, sim_dirs = (
-            load_ensemble(cfg.reload, cfg.n_checkpoint, data_dir, device)
+            load_ensemble(cfg.reload, cfg.n_checkpoint, data_dir, "cpu")
         )
         n_real = len(sim_dirs)
-        batch_state, batch_aux = stack_ensemble(states, auxes, device=device)
         cfg = cfgs[0].replace(verbose=fresh_verbose)
+        kind, mesh = _ensemble_mesh(cfg, n_real,
+                                    states[0].cluster.mass.shape[0], device)
+        batch_state, batch_aux = stack_ensemble(
+            states, auxes, device="cpu" if mesh is not None else device)
         t0 = float(batch_state.time[0])
         if extend_t is not None:
             cfg = _extend(cfg, extend_t, t0, int(round(t0 / cfg.dt)), metas)
-        for k in range(n_real):
-            base_k = os.path.join(sim_dirs[k], metas[k].filename)
-            _bound_resumed_yields(yieldses[k], base_k, cfg,
-                                  float(states[k].time))
-            _drop_stale_state_files(base_k,
-                                    metas[k].most_recent_checkpoint)
         k_step = int(round(t0 / cfg.dt))
         save_initial = False
     else:
         n_real = cfg.ensemble
-        batch_state, batch_aux, cfgs = init_ensemble(cfg, n_real, data_dir,
-                                                     device=device)
+        kind, mesh = _ensemble_mesh(cfg, n_real, cfg.n + int(cfg.interloper),
+                                    device)
+        batch_state, batch_aux, cfgs = init_ensemble(
+            cfg, n_real, data_dir,
+            device="cpu" if mesh is not None else device)
         cfg = cfgs[0]
         tag = f"pt-{cfg.rc}-{cfg.n}"
         sim_dirs, metas, yieldses, converters = [], [], [], []
         masses = batch_state.cluster.mass.cpu().numpy()
         for k in range(n_real):
             d = os.path.join(root, tag, tag, f"pt-{k}")
-            os.makedirs(d, exist_ok=True)
             sim_dirs.append(d)
             md = _metadata_from_cfg(cfgs[k].replace(filename=f"pt-{k}"))
             metas.append(md)
@@ -600,13 +687,48 @@ def run_ensemble(cfg: SimConfig, progress: bool = True,
             converters.append(Converter(cfg.rc, float(masses[k].sum())))
         k_step = 0
         save_initial = True
+    # the realizations this rank runs ([k0, k0 + len)) and those whose
+    # files it writes
+    share = range(n_real)
+    writes = True
+    if mesh is not None:
+        e, n_ens = axis_rank(mesh, "ens")
+        per = n_real // n_ens
+        share = range(e * per, (e + 1) * per)
+        writes = kind == "1d" or axis_rank(mesh, "rows")[0] == 0
+        batch_state, batch_aux = shard_ensemble(batch_state, batch_aux,
+                                                mesh)
+        # every rank has read the files before their owners write them
+        dist.barrier()
+    owned = share if writes else range(0)
+    for k in owned:
+        base_k = os.path.join(sim_dirs[k], metas[k].filename)
+        if save_initial:
+            os.makedirs(sim_dirs[k], exist_ok=True)
+        else:
+            _bound_resumed_yields(yieldses[k], base_k, cfg,
+                                  float(batch_state.time[k - share.start]))
+            _drop_stale_state_files(base_k, metas[k].most_recent_checkpoint)
 
-    # thread the block-diagonal force cache across checkpoint chunks
-    use_ens_cache = ensemble_cacheable(batch_state, cfg)
+    # thread the force cache across checkpoint chunks (block-diagonal on
+    # one device and on the 1-D mesh; (acc, pot) on the 2-D mesh, where
+    # leapfrog makes the closing evaluation exact)
+    if kind == "2d":
+        use_cache = getattr(cfg, "force_cache", True)
+    else:
+        use_cache = ensemble_cacheable(batch_state, cfg)
     ens_cache = [None]
 
     def advance_ens(bs, n):
-        if use_ens_cache:
+        if kind == "2d":
+            if not use_cache:
+                return ensemble_run_steps_2d(bs, batch_aux, cfg, n, mesh)
+            if ens_cache[0] is None:
+                ens_cache[0] = ensemble2d_fresh_cache(bs, cfg, mesh)
+            bs, ens_cache[0] = ensemble_run_steps_2d_cached(
+                bs, ens_cache[0], batch_aux, cfg, n, mesh)
+            return bs
+        if use_cache:
             if ens_cache[0] is None:
                 ens_cache[0] = ensemble_fresh_cache(bs, cfg)
             bs, ens_cache[0] = ensemble_run_steps_cached(
@@ -616,19 +738,22 @@ def run_ensemble(cfg: SimConfig, progress: bool = True,
 
     def _save_all_sync(host, times, increment=True, final=False):
         # the SAME per-run save protocol as run(), per realization
-        for k in range(n_real):
+        for k in owned:
+            i = k - share.start
             _save(os.path.join(sim_dirs[k], metas[k].filename), metas[k],
                   converters[k], yieldses[k],
-                  {f: a[k] for f, a in host.items()}, float(times[k]), cfg,
+                  {f: a[i] for f, a in host.items()}, float(times[i]), cfg,
                   increment=increment, final=final)
 
     writer = None
-    if getattr(cfg, "async_saves", True):
+    if getattr(cfg, "async_saves", True) and writes:
         from ..io.async_writer import AsyncCheckpointWriter
 
         writer = AsyncCheckpointWriter()
 
     def save_all(bs, increment=True, final=False):
+        if not writes:
+            return
         # ONE host copy per field per save, on the driver thread
         host = cluster_to_numpy(bs.cluster)
         times = bs.time.cpu().numpy()
@@ -643,7 +768,7 @@ def run_ensemble(cfg: SimConfig, progress: bool = True,
             save_all(batch_state, increment=False)
 
         bar = None
-        if progress:
+        if progress and lead:
             try:
                 from tqdm import tqdm
                 bar = tqdm(total=cfg.final_time, desc=f"Ensemble x{n_real}",
@@ -681,4 +806,7 @@ def run_ensemble(cfg: SimConfig, progress: bool = True,
                 writer.close()
             except RuntimeError:
                 pass
+    if mesh is not None:
+        batch_state = gather_ensemble(batch_state, mesh)
+        dist.barrier()
     return batch_state, sim_dirs, time.time() - t_wall0

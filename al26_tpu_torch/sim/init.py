@@ -150,17 +150,31 @@ def _resolve_tree_integrator(cfg: SimConfig) -> str:
     """The tree tier's integrator, with its guards. The tier carries acc
     AND jerk, so hermite4_block runs over tree forces (one tree sweep per
     step through the force cache); auto takes the BHTree-parity leapfrog
-    up to 8192 stars and hermite4_block above. The shared-adaptive
-    hermite4 stays refused: it would pay a full tree build and sweep per
-    substep."""
+    up to 8192 stars and hermite4_block above, and hermite4_block at every
+    N under a mesh (whose block count must divide by the mesh size). The
+    shared-adaptive hermite4 stays refused: it would pay a full tree build
+    and sweep per substep."""
     if cfg.tree_mac not in ("geometric", "relative"):
         raise ValueError(
             f"tree_mac={cfg.tree_mac!r}: 'geometric' or 'relative'")
-    if cfg.mesh_shape is not None:
-        raise NotImplementedError(
-            "force_impl='tree' under a device mesh is not ported yet "
-            "(ROADMAP queue 1, the multi-device axes: parallel/tree_mesh.py)")
     integ = cfg.integrator
+    if cfg.mesh_shape is not None:
+        # the tree mesh (parallel.tree_mesh) runs hermite4_block only: the
+        # leapfrog acc-only path is not wired through the mesh sweep
+        if integ == "auto":
+            integ = "hermite4_block"
+        elif integ != "hermite4_block":
+            raise ValueError(
+                "force_impl='tree' under a mesh requires "
+                f"integrator='hermite4_block'; got {integ!r}")
+        n_dev = int(np.prod(cfg.mesh_shape))
+        nblocks = -(-cfg.n // cfg.tree_leaf)
+        b = 1 << max(1, (nblocks - 1).bit_length())
+        if b % n_dev:
+            raise ValueError(
+                f"tree block count {b} (n={cfg.n}, tree_leaf="
+                f"{cfg.tree_leaf}) must divide by the mesh size {n_dev}; "
+                "lower tree_leaf")
     if cfg.tree_mac == "relative":
         # the reference acceleration rides the force cache on the
         # hermite4_block path (sim.step); leapfrog's interior substeps

@@ -1,5 +1,4 @@
-"""The simulation step (torch port of the single-device part of
-al26_tpu.sim.step).
+"""The simulation step (torch port of al26_tpu.sim.step).
 
 Re-design of `evolve_simulation` (al26_nbody.py:704-1113). Order of
 operations follows the reference exactly:
@@ -33,8 +32,15 @@ cfg.gravity_stride = m > 1 (run_steps_cached_strided, engaged by
 run_steps and the driver where stride_active says so) makes m physics
 steps share one hermite4_block force advance over m*dt (_stride_impl).
 
-Not ported yet, and raising NotImplementedError with their ROADMAP item:
-the device-mesh backends ("sharded", "ring", any mesh).
+Under a device mesh (`mesh`, a DeviceMesh of parallel.sharded.make_mesh)
+every rank runs the step on the whole state and the pairwise work splits
+over the ranks (parallel.sharded's docstring): the full sweeps through the
+all-gather row blocks ("sharded", the default for "auto"), the
+ring-streamed column blocks ("ring") or the tree mesh ("tree",
+parallel.tree_mesh), and the hermite4_block subcycle's K x N rows by
+column slice (parallel.sharded.make_sharded_force_rows; no
+predicted-columns factory, so kernel 2 does not run under a mesh, as in
+the JAX package).
 """
 from __future__ import annotations
 
@@ -54,19 +60,19 @@ from ..state import CH_AGB, CH_GLOBAL, CH_LOCAL, CH_SNE, SimState
 from ..units import G_INTERNAL
 from .init import SimAux
 
-_MESH_TODO = ("ROADMAP queue 1, the multi-device axes "
-              "(parallel/sharded.py, ring.py, tree_mesh.py)")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet ({item})")
-
-
 def _check_backend(mesh, force_impl: str) -> None:
-    if mesh is not None or force_impl in ("sharded", "ring"):
-        raise _not_ported(f"force_impl={force_impl!r} with a device mesh",
-                          _MESH_TODO)
-    if force_impl not in ("auto", "pallas", "default", "tree"):
+    if force_impl in ("sharded", "ring") and mesh is None:
+        raise ValueError(
+            f"force_impl={force_impl!r} requires a device mesh "
+            "(cfg.mesh_shape)")
+    if mesh is not None and force_impl not in ("auto", "sharded", "ring",
+                                               "tree"):
+        # a mesh run's opening/closing sweeps are always the mesh backends
+        raise ValueError(
+            f"force_impl={force_impl!r} is single-device; with mesh_shape "
+            "use 'auto', 'sharded', 'ring' or 'tree'")
+    if force_impl not in ("auto", "pallas", "default", "tree", "sharded",
+                          "ring"):
         raise ValueError(f"unknown force_impl: {force_impl}")
 
 
@@ -92,7 +98,32 @@ def _build_force_fn(mass, eps2, cfg: SimConfig, mesh, force_impl: str):
     default -> the integrator default (plain torch).
     tree    -> the Barnes-Hut tier at the geometric MAC (ops.tree); the
                relative MAC never comes through here (_step_impl).
+    Under a mesh: "auto" / "sharded" -> the all-gather row blocks
+    (parallel.sharded), "ring" -> the ring-streamed column blocks
+    (parallel.ring), "tree" -> the tree mesh sweep (parallel.tree_mesh);
+    no acc_fn (leapfrog takes the acceleration of force_fn).
     The caller (_step_impl) has checked the backend (_check_backend)."""
+    if mesh is not None:
+        if force_impl == "tree":
+            from ..parallel.tree_mesh import make_tree_mesh_sweep
+
+            sweep = make_tree_mesh_sweep(
+                mass, mesh, cfg.eps2, leaf=cfg.tree_leaf,
+                theta=cfg.tree_theta, kavg=cfg.tree_kavg or 256,
+                pot_eps2=None, with_jerk=True)
+
+            def tree_force_fn(p, v):
+                a, j, _ = sweep(p, v)
+                return a, j
+
+            return tree_force_fn, None
+        if force_impl == "ring":
+            from ..parallel.ring import make_ring_force
+
+            return make_ring_force(mesh, mass, eps2), None
+        from ..parallel.sharded import make_sharded_force
+
+        return make_sharded_force(mesh, mass, eps2), None
     if force_impl == "tree":
         from ..ops.tree import make_tree_acc, make_tree_force
 
@@ -130,21 +161,55 @@ def _build_rows_at_factory(mass, eps2, pallas_here: bool):
     return factory
 
 
+def _mesh_sweep(mesh, force_impl: str):
+    """Full-sweep function `(pos, vel, mass, *, eps2, pot_eps2, with_jerk)
+    -> (acc, jerk, pot)` for the mesh backends: the ring for
+    force_impl="ring", the all-gather row blocks otherwise."""
+    if force_impl == "ring":
+        from ..parallel.ring import ring_acc_jerk_pot
+
+        return lambda p, v, m, **kw: ring_acc_jerk_pot(p, v, m, mesh, **kw)
+    from ..parallel.sharded import sharded_acc_jerk_pot
+
+    return lambda p, v, m, **kw: sharded_acc_jerk_pot(p, v, m, mesh, **kw)
+
+
 def _sweep_eval_fn(cfg: SimConfig, mesh, force_impl: str, mass,
                    needs_jerk: bool, tree_aref=None):
     """Full fused sweep `(pos, vel) -> (acc, jerk, pot)`: kernel 1, or the
-    tree sweep for force_impl="tree" — the ONE place the sweep conventions
-    (cfg.eps2 force softening, _pot_eps2 virial softening, with_jerk) live;
-    _step_impl and fresh_cache both build their evaluations here.
+    tree sweep for force_impl="tree", or their mesh counterparts under a
+    mesh — the ONE place the sweep conventions (cfg.eps2 force softening,
+    _pot_eps2 virial softening, with_jerk) live; _step_impl, _stride_impl
+    and fresh_cache build their evaluations here.
 
     `tree_aref` [N] (tree tier, tree_mac="relative"): per-star reference
     acceleration magnitudes — the opening evaluation, carried by the force
     cache — switching the MAC to the relative criterion at tolerance
     cfg.tree_alpha. In relative mode the cache-seeding sweep (no previous
     acceleration yet, tree_aref None) is the EXACT sweep: kernel 1 where it
-    runs, the plain row-block sweep elsewhere. The geometric MAC at
-    cfg.tree_theta serves tree_mac="geometric" only."""
+    runs, the plain row-block sweep elsewhere (under a mesh: the
+    all-gather row blocks). The geometric MAC at cfg.tree_theta serves
+    tree_mac="geometric" only."""
     _check_backend(mesh, force_impl)
+    if mesh is not None:
+        if force_impl == "tree" and not (cfg.tree_mac == "relative"
+                                         and tree_aref is None):
+            from ..parallel.tree_mesh import make_tree_mesh_sweep
+
+            theta = cfg.tree_theta if tree_aref is None else cfg.tree_alpha
+            return make_tree_mesh_sweep(
+                mass, mesh, cfg.eps2, leaf=cfg.tree_leaf, theta=theta,
+                kavg=cfg.tree_kavg or 256, pot_eps2=_pot_eps2(cfg),
+                with_jerk=needs_jerk, aref=tree_aref)
+        # relative mode's exact seeding sweep goes through the all-gather
+        # row blocks
+        sweep = _mesh_sweep(mesh, force_impl)
+
+        def mesh_eval(p, v):
+            return sweep(p, v, mass, eps2=cfg.eps2, pot_eps2=_pot_eps2(cfg),
+                         with_jerk=needs_jerk)
+
+        return mesh_eval
     if force_impl == "tree":
         if cfg.tree_mac == "relative" and tree_aref is None:
             if not cuda_nbody.use_kernel(mass.shape[0], mass.dtype,
@@ -236,10 +301,13 @@ def _cacheable(cfg: SimConfig, n, dtype, device, mesh, force_impl) -> bool:
         return False
     if integ not in ("leapfrog", "hermite4", "hermite4_block"):
         return False
+    if mesh is not None:
+        # every mesh sweep returns acc, jerk and pot in one pass
+        return force_impl in ("auto", "sharded", "ring", "tree")
     if force_impl == "tree":
         # leapfrog: closing tree sweep at the final positions exactly;
         # hermite4_block: P(EC) semantics as on the kernel path
-        return mesh is None
+        return True
     return _pallas_here(cfg, n, dtype, device, mesh, force_impl)
 
 
@@ -287,7 +355,7 @@ def _step_impl(state: SimState, aux: SimAux, cfg: SimConfig,
     init_eval = None
     needs_jerk = integ in ("hermite4", "hermite4_block")
     sweep_eval = None
-    if pallas_here or tree_here:
+    if mesh is not None or pallas_here or tree_here:
         sweep_eval = _sweep_eval_fn(cfg, mesh, force_impl, c.mass,
                                     needs_jerk)
         a0, j0, pot = cache if cache is not None else sweep_eval(c.pos,
@@ -303,7 +371,12 @@ def _step_impl(state: SimState, aux: SimAux, cfg: SimConfig,
                                        force_impl)
     force_rows_fn = None
     rows_at_factory = None
-    if integ == "hermite4_block":
+    if integ == "hermite4_block" and mesh is not None:
+        # the subcycle's K x N row sweeps split their columns over the mesh
+        from ..parallel.sharded import make_sharded_force_rows
+
+        force_rows_fn = make_sharded_force_rows(mesh, c.mass, cfg.eps2)
+    elif integ == "hermite4_block":
         # the fast-group subcycle stays EXACT (K x N row sweeps) on every
         # backend, under the tree tier too: close encounters are where
         # monopole truncation must not leak in
@@ -534,7 +607,12 @@ def _stride_impl(state: SimState, aux: SimAux, cfg: SimConfig, cache,
     physics steps of the stride, the closing one included. Stellar mass
     loss feeds back into gravity at stride boundaries through the exact
     mass-delta cache correction: an m*dt lag instead of the unstrided
-    scheme's dt lag."""
+    scheme's dt lag.
+
+    Under a `mesh` the closing evaluation is the mesh sweep and the
+    subcycle's K x N rows split their columns over the mesh
+    (parallel.sharded.make_sharded_force_rows), with no predicted-columns
+    factory."""
     c = state.cluster
     dtype, device = c.pos.dtype, c.pos.device
     dt = torch.as_tensor(cfg.dt, dtype=dtype, device=device)
@@ -550,12 +628,20 @@ def _stride_impl(state: SimState, aux: SimAux, cfg: SimConfig, cache,
         tree_aref = torch.sqrt(torch.sum(a0 * a0, dim=-1))
     final_eval_fn = _sweep_eval_fn(cfg, mesh, force_impl, c.mass,
                                    needs_jerk=True, tree_aref=tree_aref)
-    # the subcycle's row sweeps: the kernels wherever they run (the tree
-    # tier included), the plain row block elsewhere (CPU tensors, f64)
-    rows_kernel = cuda_nbody.use_kernel(c.n, dtype, device)
-    force_rows_fn = _build_force_rows_fn(
-        c.mass, cfg.eps2, "pallas" if rows_kernel else "default")
-    rows_at_factory = _build_rows_at_factory(c.mass, cfg.eps2, rows_kernel)
+    if mesh is not None:
+        from ..parallel.sharded import make_sharded_force_rows
+
+        force_rows_fn = make_sharded_force_rows(mesh, c.mass, cfg.eps2)
+        rows_at_factory = None
+    else:
+        # the subcycle's row sweeps: the kernels wherever they run (the
+        # tree tier included), the plain row block elsewhere (CPU tensors,
+        # f64)
+        rows_kernel = cuda_nbody.use_kernel(c.n, dtype, device)
+        force_rows_fn = _build_force_rows_fn(
+            c.mass, cfg.eps2, "pallas" if rows_kernel else "default")
+        rows_at_factory = _build_rows_at_factory(c.mass, cfg.eps2,
+                                                 rows_kernel)
     pos_c, vel_c, (a1, j1, pot1), (pos_s, vel_s) = advance(
         c.pos, c.vel, c.mass, m * dt,
         integrator="hermite4_block", eta=cfg.eta_hermite,

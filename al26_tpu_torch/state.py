@@ -117,6 +117,20 @@ def empty_cluster(n: int, dtype=torch.float64, *, device) -> Cluster:
     )
 
 
+def map_tensors(fn, *trees):
+    """fn over the tensors of structurally equal trees: dataclasses of
+    tensors (Cluster, SimState, SimAux), tuples (the stellar PhaseTable, a
+    force cache) and tensors."""
+    x = trees[0]
+    if isinstance(x, torch.Tensor):
+        return fn(*trees)
+    if isinstance(x, tuple):
+        return type(x)(*(map_tensors(fn, *ys) for ys in zip(*trees)))
+    return type(x)(**{f.name: map_tensors(fn, *(getattr(t, f.name)
+                                                 for t in trees))
+                      for f in dataclasses.fields(x)})
+
+
 def cluster_to_numpy(c: Cluster) -> dict:
     """Pull a cluster to the host as a dict of numpy arrays."""
     return {

@@ -4,6 +4,9 @@
     python3 chip_smoke.py        # needs one CUDA card
     python3 chip_smoke.py --mma  # phases 1, 2, 3d and kernel 2c at the
                                  # tree slice's shape, nothing else
+    python3 chip_smoke.py --nccl # phases 1, 2, 5 at N = 32768, 5c at
+                                 # 64 x 1000 and 7p (needs >= 2 cards for
+                                 # the NCCL ranks), nothing else
 
 Phases, one result line each (any failure exits non-zero):
 
@@ -158,8 +161,40 @@ sweep, as in the JAX package) and the entry path of a user:
   6c. ensemble driver  sim.driver.run_ensemble, 64 x 1000, 20 steps: the
               64 pt-<k> folders and their files, s/Myr with the saves.
 
+The device meshes (torch.distributed; parallel.sharded, ring, tree_mesh
+and the ensemble meshes), after 6c:
+
+  7m. mesh virtual  the local body of every mesh path for MESH_D = 4
+              ranks in one process on the card, assembled and held
+              against the unsplit kernel call on the same inputs: the
+              sharded row blocks (1c; 1's FMA body) and the ring's blocks
+              (1c) at N = 32768 with the jerk and the raw potential (bars
+              3e-4 / 1e-5 of the max, the potential 1e-5); the subcycle's
+              K = 256 column slices, K drawn from every shard, each slice
+              also against its own f64 FMA-form sum (5e-4); the tree's
+              far-field blocks and kernel 3's item shares at phase 5b's
+              N = 409600 fractal state (1e-5), with the pairs a rank; kernel
+              1b on a (2, 2) split of the 64 x 1000 ensemble (1e-5). Each
+              rank's device time at its shape;
+  7n. mesh world of one  a world of one over NCCL, through the entry
+              points, the counts set to 0 just before each path and read
+              just after, each held against its one-device run at the bars
+              of phase 4: "sharded" and "ring" from phase 5's initial bits
+              (20 steps; 1c, no 2c), the tree mesh at N = 409600 for 5
+              steps against 5b's first 5, the stride 4 under the mesh
+              against 5s (1c's closing sweeps exactly 9), the driver with
+              mesh_shape=(1,) and orbax_dir against 6b (a DCP tree at each
+              save, then a resume from step 11's tree), the CLI with
+              --mesh_shape 1 against phase 6, the ensemble meshes (1,) and
+              (1, 1) against 5c; s/Myr beside each;
+  7p. mesh nccl  with two or more cards, min(4, count) NCCL ranks (one
+              process a card) run phase 5's run on the (D,) mesh and 5c's
+              ensemble on the 1-D ensemble mesh: every rank on the same
+              bits, held against phases 5 and 5c; with one card a line
+              says the mesh phases ran a world of one.
+
 The run order: 1, 2, 3, 3d, 3b, 3c, 4, 4d, 4b, 4c, 5, 5s, 5b, 5t, 5c, 6,
-6b, 6d, 6c.
+6b, 6d, 6c, 7m, 7n, 7p.
 
 Then one JSON line with every kernel's launches (kernels 1-3 from phase 5b,
 the windowed kernel from the 64 x 1000 run of phase 5c, the matmul kernels
@@ -174,8 +209,10 @@ SM clock, read in phase 1), the matmul bodies' 3xTF32 products over the
 TF32 rate, and the bytes over the HBM rate; bound_by says "bytes" or
 "operations", bound_pipe which term ("fp32", "sfu", "tf32", "hbm"). The
 FMA bodies count 50 flops a pair with the jerk, 30 without, the matmul
-bodies their FP32 work outside the tensor cores. Last the line
-{"ok": true, "device": {...}}.
+bodies their FP32 work outside the tensor cores. Each kernel's
+`mesh_launches` are its launches on phase 7n's mesh paths (2c: 0, the
+subcycle rows go through 1c under a mesh), and its error includes phase
+7m's. Last the line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -232,6 +269,11 @@ MMA_REPS = 50
 # (JAX_PLATFORMS=cpu python tests/stride_deviation.py --n 32768). Phase 5s
 # holds the card's pair of runs to these within STRIDE_REF_TOL relative.
 STRIDE = 4
+# the mesh phases: virtual ranks (7m), the subcycle's rows a call, and the
+# back-to-back calls of a rank's timing
+MESH_D = 4
+MESH_K = 256
+MESH_REPS = 20
 STRIDE_REF = {"pos_rms_pc": 4.2728e-4, "slr_total_rel": 2.0874e-2}
 STRIDE_REF_TOL = 0.1
 
@@ -1436,9 +1478,11 @@ def phase_tree_slice():
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cache = fresh_cache(state, cfg, cfg.integrator, None, "tree")
+    chunk_states = []
     for _ in range(2):                     # two checkpoint-sized chunks
         state, cache = run_steps_cached(state, cache, aux, cfg, 5, None,
                                         "tree")
+        chunk_states.append(state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches()
@@ -1503,6 +1547,7 @@ def phase_tree_slice():
         _fail(f"relative tree run: "
               f"{[k for k, v in rchecks.items() if not v]} failed")
     runs = {"geometric": {"state0": state0, "aux": aux, "cfg": cfg,
+                          "state5": chunk_states[0],
                           "s_per_myr": wall / (steps * cfg.dt),
                           "substeps_per_dt": step_launches[
                               "nbody_predcols_mma"] / steps,
@@ -1617,7 +1662,7 @@ def phase_stride_slice(base: dict) -> dict:
     if not all(checks.values()):
         _fail(f"stride slice: {[k for k, v in checks.items() if not v]} "
               "failed")
-    return {"s_per_myr": wall / (steps * cfg.dt)}
+    return {"s_per_myr": wall / (steps * cfg.dt), "state": state}
 
 
 def _tree_stride_run(run: dict, steps: int, **knobs):
@@ -1894,6 +1939,7 @@ def phase_ensemble_slice(b: int, n: int, steps: int, chunks) -> dict:
     _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    bs0 = bs
     cache = ens.ensemble_fresh_cache(bs, cfg)
     for chunk in chunks:
         bs, cache = ens.ensemble_run_steps_cached(bs, cache, ba, cfg, chunk)
@@ -1959,7 +2005,9 @@ def phase_ensemble_slice(b: int, n: int, steps: int, chunks) -> dict:
     if not all(checks.values()):
         _fail(f"ensemble {b}x{n}: "
               f"{[k for k, v in checks.items() if not v]} failed")
-    return launches
+    return {"launches": launches, "state0": bs0, "aux": ba, "cfg": cfg,
+            "state": bs, "s_per_myr": wall / (steps * cfg.dt),
+            "chunks": chunks}
 
 
 def _file_state(path: str):
@@ -2059,6 +2107,7 @@ def phase_cli():
           checks=checks)
     if not all(checks.values()):
         _fail(f"cli: {[k for k, v in checks.items() if not v]} failed")
+    return {"final": final, "args": args, "command_s": wall}
 
 
 def phase_driver(slice_s_per_myr: float, stride: int = 1,
@@ -2124,7 +2173,7 @@ def phase_driver(slice_s_per_myr: float, stride: int = 1,
     if not all(checks.values()):
         _fail(f"driver (stride {stride}): "
               f"{[k for k, v in checks.items() if not v]} failed")
-    return {"launches": launches,
+    return {"launches": launches, "state": res.state,
             "s_per_myr": wall / (steps * res.cfg.dt)}
 
 
@@ -2174,6 +2223,605 @@ def phase_ensemble_driver():
               " failed")
 
 
+# --------------------------------------------------------------------------
+# the device meshes (parallel.sharded, ring, tree_mesh, the ensemble meshes)
+# --------------------------------------------------------------------------
+
+def _local_rows_counter():
+    """Wrap parallel.sharded._local_rows_force with a call counter: every
+    full mesh sweep (sharded_acc_jerk_pot) is one call on a world of one,
+    so the count is the closing sweeps of the run. Returns the counter
+    dict; the wrapper stays (it only counts)."""
+    from al26_tpu_torch.parallel import sharded
+
+    real = getattr(sharded._local_rows_force, "__wrapped__",
+                   sharded._local_rows_force)
+    count = {"calls": 0}
+
+    def counted(*a, **kw):
+        count["calls"] += 1
+        return real(*a, **kw)
+
+    counted.__wrapped__ = real
+    sharded._local_rows_force = counted
+    return count
+
+
+def _rank_ms(call) -> dict:
+    """A rank's call at its shape: `call_ms`, CUDA events around MESH_REPS
+    back-to-back calls over the count (bound by the host work where the
+    kernel is short), and `kernel_ms`, the port's kernels' own device time
+    in one call by name (torch.profiler)."""
+    kernels = _kernel_ms(call, reps=MESH_REPS)
+    return {"call_ms": _device_ms(call, reps=MESH_REPS, warmup=2),
+            "kernel_ms": {k: v["ms"] for k, v in kernels.items()
+                          if "sweep" in k or "near_" in k}}
+
+
+def phase_mesh_virtual(run5: dict, tree_run: dict, ens_run: dict) -> dict:
+    """7m: the local body of every mesh path, for all MESH_D ranks in one
+    process on the card, assembled and held against the unsplit kernel
+    call on the same inputs: the sharded row blocks (kernel 1c, and 1's
+    FMA body) and the ring's row x column blocks (1c) at N_KERNEL with
+    the jerk and the raw potential (bars 3e-4 / 1e-5 of the max, the
+    potential 1e-5); the subcycle's K = MESH_K column slices with K drawn
+    from every shard (1c; each slice also against its own f64 FMA-form
+    sum, bar 5e-4); the tree's far-field target blocks and near-field
+    item shares (kernel 3) at phase 5b's N_TREE fractal state (1e-5);
+    kernel 1b's row slices of a (2, 2) split of the 64 x 1000 ensemble
+    (1e-5). Each rank's device time at its shape, and the near field's
+    pairs a rank."""
+    import torch
+
+    from al26_tpu_torch.ops import cuda_nbody as cn
+    from al26_tpu_torch.ops import cuda_tree as ct
+    from al26_tpu_torch.ops import tree as T
+    from al26_tpu_torch.parallel import ensemble as ens
+    from al26_tpu_torch.parallel import ring, sharded, tree_mesh
+    from al26_tpu_torch.units import G_INTERNAL
+
+    d = MESH_D
+    c = run5["state0"].cluster
+    eps2 = run5["cfg"].eps2
+    pos, vel, mass = c.pos, c.vel, c.mass
+    n = pos.shape[0]
+    blk = n // d
+    errs, times, checks = {}, {}, {}
+
+    def hold(name, got, ref, bars):
+        e = {k: _rel_err(g, r) for k, g, r in zip(("acc", "jerk", "pot"),
+                                                  got, ref)}
+        errs[name] = e
+        checks[name] = all(e[k] < bars[k] for k in e)
+
+    bars_mma = {"acc": MMA_TOL, "jerk": MMA_TOL, "pot": KERNEL_TOL}
+    bars_fma = {"acc": KERNEL_TOL, "jerk": KERNEL_TOL, "pot": KERNEL_TOL}
+    for use_mxu, bars in ((True, bars_mma), (False, bars_fma)):
+        parts = [sharded._local_rows_force(r, d, pos, vel, mass, eps2,
+                                           pot_eps2=1e-30, use_mxu=use_mxu)
+                 for r in range(d)]
+        got = [torch.cat(x) for x in zip(*parts)]
+        ref = cn.kernel_acc_jerk_pot(pos, vel, mass, eps2, pot_eps2=1e-30,
+                                     use_mxu=use_mxu)
+        name = "sharded_rows_" + ("mma" if use_mxu else "fma")
+        hold(name, got, ref, bars)
+        times[name + "_rank_ms"] = _rank_ms(
+            lambda: sharded._local_rows_force(0, d, pos, vel, mass, eps2,
+                                              pot_eps2=1e-30,
+                                              use_mxu=use_mxu))
+
+    rows = []
+    for r in range(d):
+        sl = slice(r * blk, (r + 1) * blk)
+        ids = torch.arange(r * blk, (r + 1) * blk, dtype=torch.int32,
+                           device=pos.device)
+        parts = [ring._partial_block_force(
+            pos[sl], vel[sl], ids, pos[s * blk:(s + 1) * blk],
+            vel[s * blk:(s + 1) * blk], mass[s * blk:(s + 1) * blk],
+            s * blk, eps2, pot_eps2=1e-30) for s in range(d)]
+        rows.append([sum(x) for x in zip(*parts)])
+    got = [torch.cat(x) for x in zip(*rows)]
+    ref = cn.kernel_acc_jerk_pot(pos, vel, mass, eps2, pot_eps2=1e-30)
+    hold("ring_blocks_mma", got, ref, bars_mma)
+    times["ring_block_ms"] = _rank_ms(lambda: ring._partial_block_force(
+        pos[:blk], vel[:blk], torch.arange(blk, dtype=torch.int32,
+                                           device=pos.device),
+        pos[blk:2 * blk], vel[blk:2 * blk], mass[blk:2 * blk], blk, eps2,
+        pot_eps2=1e-30))
+
+    # the subcycle's rows: MESH_K // d from every shard
+    g = torch.Generator().manual_seed(7)
+    ids = torch.cat([r * blk + torch.randperm(blk, generator=g)[:MESH_K // d]
+                     for r in range(d)]).to(torch.int32).to(pos.device)
+    pr, vr = pos[ids.long()], vel[ids.long()]
+    slice_errs = {}
+    tot = None
+    for r in range(d):
+        a, j = sharded._partial_rows_force(r, d, pr, vr, ids, pos, vel,
+                                           mass, eps2)
+        sl = slice(r * blk, (r + 1) * blk)
+        ra, rj, _ = cn.nbody_rows_plain(
+            pr.double(), vr.double(), sharded.slice_ids(ids, r * blk, blk),
+            pos[sl].double(), vel[sl].double(), mass[sl].double(), eps2,
+            with_pot=False)
+        slice_errs[r] = {"acc": _rel_err(a, ra), "jerk": _rel_err(j, rj)}
+        tot = (a.double(), j.double()) if tot is None else (
+            tot[0] + a.double(), tot[1] + j.double())
+    wa, wj, _ = cn.kernel_acc_jerk_pot_rows(pr, vr, ids, pos, vel, mass,
+                                            eps2, with_pot=False)
+    errs["column_slices_sum"] = {"acc": _rel_err(tot[0], wa),
+                                 "jerk": _rel_err(tot[1], wj)}
+    errs["column_slices_each"] = slice_errs
+    checks["column_slices_sum"] = all(
+        v < PRED_MMA_TOL for v in errs["column_slices_sum"].values())
+    checks["column_slices_each"] = all(
+        v < PRED_MMA_TOL for e in slice_errs.values() for v in e.values())
+    times["column_slice_rank_ms"] = _rank_ms(
+        lambda: sharded._partial_rows_force(0, d, pr, vr, ids, pos, vel,
+                                            mass, eps2))
+
+    # the tree: phase 5b's initial state, its sweep's settings
+    tcfg = tree_run["cfg"]
+    tc = tree_run["state0"].cluster
+    tn = tc.pos.shape[0]
+    tree = T.build_block_tree(tc.pos, tc.mass, tcfg.tree_leaf, tc.vel)
+    accepts, p2p = T.mac_masks(tree, tcfg.tree_theta)
+    kw = dict(leaf=tcfg.tree_leaf, kavg=tcfg.tree_kavg, pot_eps2=1e-30,
+              with_jerk=True)
+    near = [tree_mesh._near_field_part(r, d, tree, p2p, tn, tcfg.eps2, **kw)
+            for r in range(d)]
+    ref = ct.near_field(tree.pos_s, tree.mass_s, p2p, tn, tcfg.eps2,
+                        vel_s=tree.vel_s, **kw)
+    checks["near_no_overflow"] = not any(bool(x[3]) for x in near + [ref])
+    hold("tree_near_items", [sum(x[i] for x in near) for i in range(3)],
+         ref[:3], bars_fma)
+    far = [tree_mesh._far_field_part(r, d, tree, accepts, tcfg.eps2,
+                                     pot_eps2=1e-30, with_jerk=True)
+           for r in range(d)]
+    ref_far = T._monopole_far_field(tree, accepts, tcfg.eps2, G_INTERNAL,
+                                    1e-30, with_jerk=True)
+    hold("tree_far_blocks", [torch.cat(x) for x in zip(*far)], ref_far,
+         bars_fma)
+    pairs = [int(ct.near_items(p2p, tcfg.tree_kavg, tn, tcfg.tree_leaf,
+                               part=(r, d)).item[2].sum())
+             for r in range(d)]
+    times["tree_near_rank_ms"] = [_rank_ms(
+        lambda r=r: tree_mesh._near_field_part(r, d, tree, p2p, tn,
+                                               tcfg.eps2, **kw))
+        for r in range(d)]
+    times["tree_near_whole_ms"] = _rank_ms(
+        lambda: ct.near_field(tree.pos_s, tree.mass_s, p2p, tn, tcfg.eps2,
+                              vel_s=tree.vel_s, **kw))
+    del tree, accepts, p2p, near, ref, far, ref_far
+
+    # kernel 1b on a (2, 2) split of the 64 x 1000 ensemble
+    ec = ens_run["state0"].cluster
+    b, en = ec.mass.shape
+    acc_e, pot_e = [], []
+    for e in range(2):
+        sh = slice(e * b // 2, (e + 1) * b // 2)
+        parts = [ens._ensemble2d_local(r, 2, ec.pos[sh], ec.vel[sh],
+                                       ec.mass[sh], ens_run["cfg"].eps2,
+                                       pot_eps2=1e-30) for r in range(2)]
+        acc_e.append(torch.cat([p[0] for p in parts], 1))
+        pot_e.append(torch.cat([p[1] for p in parts], 1))
+    wa, _, wp = cn.kernel_acc_jerk_pot(
+        ec.pos.reshape(-1, 3), ec.vel.reshape(-1, 3), ec.mass.reshape(-1),
+        ens_run["cfg"].eps2, with_jerk=False, group_size=en, pot_eps2=1e-30)
+    errs["group_2x2"] = {"acc": _rel_err(torch.cat(acc_e).reshape(-1, 3),
+                                         wa),
+                         "pot": _rel_err(torch.cat(pot_e).reshape(-1), wp)}
+    checks["group_2x2"] = all(v < KERNEL_TOL
+                              for v in errs["group_2x2"].values())
+    sh = slice(0, b // 2)
+    times["group_rank_ms"] = _rank_ms(lambda: ens._ensemble2d_local(
+        0, 2, ec.pos[sh], ec.vel[sh], ec.mass[sh], ens_run["cfg"].eps2,
+        pot_eps2=1e-30))
+    _line("mesh virtual", ranks=d, n=n, k=MESH_K, tree_n=tn,
+          ensemble=[b, en], rel_err=errs, near_pairs_per_rank=pairs,
+          rank_times=times, checks=checks)
+    if not all(checks.values()):
+        _fail(f"mesh virtual: {[k for k, v in checks.items() if not v]} "
+              "failed")
+    worst = {
+        "nbody_rows_mma": max(errs[k][q] for k in ("sharded_rows_mma",
+                                                   "ring_blocks_mma")
+                              for q in ("acc", "jerk", "pot")),
+        "nbody_rows": max(errs["sharded_rows_fma"].values()),
+        "near_field": max(errs["tree_near_items"].values()),
+        "nbody_rows_group": max(errs["group_2x2"].values()),
+    }
+    return {"rel_err": worst, "times": times}
+
+
+def _mesh_run(state, aux, cfg, mesh, force_impl: str, chunks,
+              strided: bool = False):
+    """fresh_cache and cached chunks under `mesh` (counts set to 0 just
+    before, read just after): (state, wall seconds, launches)."""
+    import torch
+
+    from al26_tpu_torch.sim.step import (
+        fresh_cache, run_steps_cached, run_steps_cached_strided,
+    )
+
+    runner = run_steps_cached_strided if strided else run_steps_cached
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = fresh_cache(state, cfg, cfg.integrator, mesh, force_impl)
+    for chunk in chunks:
+        state, cache = runner(state, cache, aux, cfg, chunk, mesh,
+                              force_impl)
+    torch.cuda.synchronize()
+    return state, time.perf_counter() - t0, _launches()
+
+
+def _host_parity(got_state, ref_state) -> dict:
+    from al26_tpu_torch.state import cluster_to_numpy
+
+    return _parity(cluster_to_numpy(got_state.cluster),
+                   cluster_to_numpy(ref_state.cluster))
+
+
+def _parity_ok(par: dict) -> bool:
+    return (par["pos_err_over_bar"] <= 1.0 and par["slr_err_over_bar"] <= 1.0
+            and par["mass_exact"])
+
+
+def phase_mesh_world(run5: dict, stride5: dict, tree_run: dict,
+                     ens_run: dict, cli: dict, drv: dict) -> dict:
+    """7n: a world of one over NCCL (the process initialises it itself),
+    through the entry points a user calls, each path with the counts set
+    to 0 just before it and read just after, each held against its
+    one-device run of the earlier phases at the bars of phase 4
+    (tests/test_force_cache.py's): the sharded and the ring run, 20
+    steps from phase 5's initial bits (1c, no 2c: the subcycle rows go
+    through the column slices); the tree mesh at N_TREE for 5 steps from
+    phase 5b's initial state (kernel 3 and 1c); the gravity stride 4
+    under the mesh against phase 5s (1c's closing sweeps exactly 9); the
+    driver with mesh_shape=(1,) and orbax_dir at N_KERNEL against phase
+    6b (a DCP tree at every save, then a resume from step 11's tree); the
+    CLI with --mesh_shape 1 against phase 6; the ensemble meshes (1,) and
+    (1, 1) at 64 x 1000 against phase 5c (1b). s/Myr beside each one-
+    device run's. Returns the launches of the mesh paths, by kernel."""
+    import glob
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from al26_tpu_torch import SimConfig
+    from al26_tpu_torch.io.orbax_backend import (
+        latest_step, load_sharded_state,
+    )
+    from al26_tpu_torch.parallel import ensemble as ens
+    from al26_tpu_torch.parallel.sharded import make_mesh, shard_state_rows
+    from al26_tpu_torch.sim import driver
+
+    mesh = make_mesh(1, device="cuda")
+    world = {"backend": dist.get_backend(), "size": dist.get_world_size()}
+    if world != {"backend": "nccl", "size": 1}:
+        _fail(f"the world of one is {world}")
+    mesh_launches = {}
+    results = {}
+
+    def fold(launches):
+        for k, v in launches.items():
+            mesh_launches[k] = mesh_launches.get(k, 0) + v
+
+    cfg5, steps = run5["cfg"], 20
+    for fi in ("sharded", "ring"):
+        st, wall, la = _mesh_run(shard_state_rows(run5["state0"], mesh),
+                                 run5["aux"], cfg5, mesh, fi, (10, 10))
+        checks, _ = _state_checks(st, cfg5, steps)
+        par = _host_parity(st, run5["state"])
+        checks.update({"parity_phase5": _parity_ok(par),
+                       "rows_mma_launched": la["nbody_rows_mma"] > 0,
+                       "no_predcols": not (la["nbody_predcols_mma"]
+                                           or la["nbody_predcols"])})
+        results[fi] = {"s_per_myr": wall / (steps * cfg5.dt),
+                       "phase5_s_per_myr": run5["s_per_myr"],
+                       "launches": la, **par, "checks": checks}
+        fold(la)
+
+    tcfg = tree_run["cfg"]
+    st, wall, la = _mesh_run(shard_state_rows(tree_run["state0"], mesh),
+                             tree_run["aux"], tcfg, mesh, "tree", (5,))
+    checks, _ = _state_checks(st, tcfg, 5)
+    par = _host_parity(st, tree_run["state5"])
+    checks.update({"parity_phase5b": _parity_ok(par),
+                   "near_field_launched": la["near_field"] > 0,
+                   "rows_mma_launched": la["nbody_rows_mma"] > 0,
+                   "no_predcols": not la["nbody_predcols_mma"]})
+    results["tree"] = {"n": N_TREE, "s_per_myr": wall / (5 * tcfg.dt),
+                       "phase5b_s_per_myr": tree_run["s_per_myr"],
+                       "launches": la, **par, "checks": checks}
+    fold(la)
+
+    scfg = cfg5.replace(gravity_stride=STRIDE)
+    sweeps = _local_rows_counter()
+    st, wall, la = _mesh_run(shard_state_rows(run5["state0"], mesh),
+                             run5["aux"], scfg, mesh, "sharded", (10, 10),
+                             strided=True)
+    closing = sweeps["calls"]
+    want = 1 + 2 * _closing_sweeps(steps // 2, STRIDE)
+    checks, _ = _state_checks(st, scfg, steps)
+    par = _host_parity(st, stride5["state"])
+    checks.update({"parity_phase5s": _parity_ok(par),
+                   "closing_sweeps": closing == want,
+                   "rows_mma_closing_and_rows": la["nbody_rows_mma"]
+                   > closing,
+                   "no_predcols": not la["nbody_predcols_mma"]})
+    results["stride"] = {"stride": STRIDE, "closing_1c_sweeps": closing,
+                         "want": want, "s_per_myr": wall / (steps * scfg.dt),
+                         "phase5s_s_per_myr": stride5["s_per_myr"],
+                         "launches": la, **par, "checks": checks}
+    fold(la)
+
+    # the driver with a DCP tree at every save, then a resume from one
+    tmp = tempfile.mkdtemp(prefix="al26-mesh-driver-")
+    tree_dir = os.path.join(tmp, "dcp")
+    dcfg = SimConfig(n=N_KERNEL, rc=1.0, dtype="f32",
+                            final_time=0.2, n_plot=2, steps_per_plot=10,
+                            seed=42, filename=os.path.join(tmp, "drv"),
+                            mesh_shape=(1,), orbax_dir=tree_dir)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = driver.run(dcfg, progress=False, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    la = _launches()
+    fold(la)
+    checks, _ = _state_checks(res.state, res.cfg, steps)
+    trees = sorted(int(x) for x in os.listdir(tree_dir) if x.isdigit())
+    par = _host_parity(res.state, drv["state"])
+    mid, _, _ = load_sharded_state(tree_dir, step=11, template=res.state)
+    resumed, _, _ = _mesh_run(mid, res.aux, res.cfg, mesh, "auto", (9,))
+    par_r = _host_parity(resumed, res.state)
+    checks.update({
+        "state_files": len(glob.glob(os.path.join(tmp, "drv-state-*"))) == 4,
+        "dcp_trees": trees == [1, 11, 20] and latest_step(tree_dir) == 20,
+        "parity_phase6b": _parity_ok(par),
+        "dcp_resume_parity": _parity_ok(par_r),
+        "rows_mma_launched": la["nbody_rows_mma"] > 0,
+        "no_predcols": not la["nbody_predcols_mma"]})
+    results["driver"] = {"n": N_KERNEL, "dcp_steps": trees,
+                         "s_per_myr_with_saves": wall / (steps * dcfg.dt),
+                         "phase6b_s_per_myr_with_saves": drv["s_per_myr"],
+                         "checkpoint_s": res.phase_seconds.get("checkpoint"),
+                         "launches": la, **par,
+                         "resume_from_step_11": par_r, "checks": checks}
+
+    # the CLI as a user runs it, with --mesh_shape 1, against phase 6
+    ctmp = tempfile.mkdtemp(prefix="al26-mesh-cli-")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "al26_tpu_torch.cli"]
+                       + cli["args"] + ["--mesh_shape", "1"], cwd=ctmp,
+                       env=env, capture_output=True, text=True, timeout=600)
+    cwall = time.perf_counter() - t0
+    if r.returncode != 0:
+        _fail(f"the CLI with --mesh_shape 1 exited {r.returncode}: "
+              f"{r.stderr[-2000:]}")
+    states = sorted(glob.glob(os.path.join(ctmp, "smoke-state-*.pkl.zst")))
+    final, t_final = _file_state(states[-1])
+    par = _parity(final, cli["final"])
+    checks = {"state_files": len(states) == 102,
+              "time": abs(t_final - 1.0) <= 1e-6,
+              "parity_phase6": _parity_ok(par), **_host_invariants(final)}
+    results["cli"] = {"command_s": cwall, "phase6_command_s":
+                      cli["command_s"], **par, "checks": checks}
+
+    # the ensemble meshes against phase 5c
+    ecfg = ens_run["cfg"]
+    esteps = sum(ens_run["chunks"])
+    for name, m in (("ensemble_1d", ens.make_ensemble_mesh(1, "cuda")),
+                    ("ensemble_2d", ens.make_ensemble2d_mesh(1, 1,
+                                                             "cuda"))):
+        bs, ba = (ens.shard_ensemble if name == "ensemble_1d"
+                  else ens.shard_ensemble_2d)(ens_run["state0"],
+                                              ens_run["aux"], m)
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "ensemble_1d":
+            cache = ens.ensemble_fresh_cache(bs, ecfg)
+            for chunk in ens_run["chunks"]:
+                bs, cache = ens.ensemble_run_steps_cached(bs, cache, ba,
+                                                          ecfg, chunk)
+        else:
+            cache = ens.ensemble2d_fresh_cache(bs, ecfg, m)
+            for chunk in ens_run["chunks"]:
+                bs, cache = ens.ensemble_run_steps_2d_cached(bs, cache, ba,
+                                                             ecfg, chunk, m)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        la = _launches()
+        fold(la)
+        bs = ens.gather_ensemble(bs, m)
+        checks = {}
+        for k in range(bs.cluster.mass.shape[0]):
+            ck, _ = _state_checks(ens._take(bs, k), ecfg, esteps)
+            for key, ok in ck.items():
+                checks[key] = checks.get(key, True) and ok
+        par = _host_parity(bs, ens_run["state"])
+        checks.update({"parity_phase5c": _parity_ok(par),
+                       "rows_group_launched": la["nbody_rows_group"] > 0,
+                       "only_the_window": not any(
+                           v for k, v in la.items()
+                           if k != "nbody_rows_group")})
+        results[name] = {"s_per_myr": wall / (esteps * ecfg.dt),
+                         "phase5c_s_per_myr": ens_run["s_per_myr"],
+                         "launches": la, **par, "checks": checks}
+    _line("mesh world of one", world=world, mesh_launches=mesh_launches,
+          **results)
+    bad = [f"{k}.{c}" for k, v in results.items()
+           for c, ok in v["checks"].items() if not ok]
+    if bad:
+        _fail(f"mesh world of one: {bad} failed")
+    return mesh_launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nccl_rank(out_dir: str) -> int:
+    """One rank of phase 7p (run by phase_mesh_nccl as `chip_smoke.py
+    --nccl-rank DIR`, torchrun's variables in its environment): phase 5's
+    N_KERNEL run, 20 steps as two cached chunks of 10 on the (D,) mesh
+    ("sharded"), then the 64 x 1000 ensemble of phase 5c on the 1-D
+    ensemble mesh; its final states, times and launches into
+    DIR/rank<R>.npz."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from al26_tpu_torch import SimConfig
+    from al26_tpu_torch.parallel import ensemble as ens
+    from al26_tpu_torch.parallel.sharded import (
+        local_device, make_mesh, shard_state_rows,
+    )
+    from al26_tpu_torch.sim import init_cluster
+    from al26_tpu_torch.state import cluster_to_numpy
+
+    dev = local_device("cuda")
+    world = int(os.environ["WORLD_SIZE"])
+    mesh = make_mesh(world, device=dev)
+    cfg = SimConfig(n=N_KERNEL, rc=1.0, seed=42, dtype="f32",
+                    force_impl="auto")
+    state, aux, cfg = init_cluster(cfg, device=dev)
+    state = shard_state_rows(state, mesh)
+    st, wall, la = _mesh_run(state, aux, cfg, mesh, "sharded", (10, 10))
+    out = {f"run.{k}": v for k, v in cluster_to_numpy(st.cluster).items()}
+    out.update({"run.s_per_myr": wall / (20 * cfg.dt),
+                "run.launches": json.dumps(la)})
+    b, en, _, chunks = ENSEMBLES[0]
+    bs, ba, cfgs = ens.init_ensemble(SimConfig(n=en, rc=1.0, seed=42,
+                                               dtype="f32"), b,
+                                     device="cpu")
+    emesh = ens.make_ensemble_mesh(world, dev)
+    bs, ba = ens.shard_ensemble(bs, ba, emesh)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = ens.ensemble_fresh_cache(bs, cfgs[0])
+    for chunk in chunks:
+        bs, cache = ens.ensemble_run_steps_cached(bs, cache, ba, cfgs[0],
+                                                  chunk)
+    torch.cuda.synchronize()
+    ewall = time.perf_counter() - t0
+    la = _launches()
+    bs = ens.gather_ensemble(bs, emesh)
+    out.update({f"ens.{k}": v for k, v in cluster_to_numpy(bs.cluster)
+                .items()})
+    out.update({"ens.s_per_myr": ewall / (sum(chunks) * cfgs[0].dt),
+                "ens.launches": json.dumps(la)})
+    np.savez(os.path.join(out_dir, f"rank{dist.get_rank()}.npz"), **out)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _nccl_results(tmp: str, d: int, run5: dict, ens_run: dict):
+    """(checks, result) of phase 7p from its ranks' DIR/rank<R>.npz:
+    every rank on the same bits, rank 0 against phases 5 and 5c at the
+    bars of phase 4, the kernels launched on every rank, s/Myr beside."""
+    import numpy as np
+
+    from al26_tpu_torch.state import cluster_to_numpy
+
+    outs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+            for r in range(d)]
+    meta = ("s_per_myr", "launches")
+    same = all(np.array_equal(o[k], outs[0][k]) for o in outs[1:]
+               for k in outs[0] if not k.endswith(meta))
+    part = lambda o, p: {k[len(p):]: v for k, v in o.items()
+                         if k.startswith(p) and not k.endswith(meta)}
+    par = _parity(part(outs[0], "run."),
+                  cluster_to_numpy(run5["state"].cluster))
+    par_e = _parity(part(outs[0], "ens."),
+                    cluster_to_numpy(ens_run["state"].cluster))
+    launches = [json.loads(str(o["run.launches"])) for o in outs]
+    elaunches = [json.loads(str(o["ens.launches"])) for o in outs]
+    checks = {"ranks_same_bits": same, "parity_phase5": _parity_ok(par),
+              "parity_phase5c": _parity_ok(par_e),
+              "rows_mma_every_rank": all(la["nbody_rows_mma"] > 0
+                                         for la in launches),
+              "no_predcols": not any(la["nbody_predcols_mma"]
+                                     for la in launches),
+              "group_every_rank": all(la["nbody_rows_group"] > 0
+                                      for la in elaunches)}
+    result = {"s_per_myr": [float(o["run.s_per_myr"]) for o in outs],
+              "phase5_s_per_myr": run5["s_per_myr"],
+              "ensemble_s_per_myr": [float(o["ens.s_per_myr"])
+                                     for o in outs],
+              "phase5c_s_per_myr": ens_run["s_per_myr"],
+              "launches_per_rank": launches,
+              "ensemble_launches_per_rank": elaunches,
+              "run": par, "ensemble": par_e}
+    return checks, result
+
+
+def phase_mesh_nccl(run5: dict, ens_run: dict) -> None:
+    """7p: with two or more cards, min(4, count) NCCL ranks, one process a
+    card (torchrun's environment, set here): phase 5's run on the (D,)
+    mesh and the 64 x 1000 ensemble on the 1-D ensemble mesh; every rank
+    on the same bits, held against phases 5 and 5c at the bars of phase 4.
+    With one card, the line says the mesh phases ran a world of one."""
+    import tempfile
+
+    import torch
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        _line("mesh nccl", cards=count, ranks=1,
+              note="one card: the mesh phases ran a world of one (7n) and "
+                   "virtual ranks (7m)")
+        return
+    d = min(4, count)
+    tmp = tempfile.mkdtemp(prefix="al26-nccl-")
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()), WORLD_SIZE=str(d),
+               LOCAL_WORLD_SIZE=str(d))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--nccl-rank",
+         tmp], env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(d)]
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=900)
+            errs.append((p.returncode, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    bad = [(r, rc, e) for r, (rc, e) in enumerate(errs) if rc != 0]
+    if bad:
+        _fail(f"NCCL rank {bad[0][0]} exited {bad[0][1]}: "
+              f"{bad[0][2][-3000:]}")
+    checks, result = _nccl_results(tmp, d, run5, ens_run)
+    _line("mesh nccl", cards=count, ranks=d, command_s=wall, **result,
+          checks=checks)
+    if not all(checks.values()):
+        _fail(f"mesh nccl: {[k for k, v in checks.items() if not v]} "
+              "failed")
+
+
 def main() -> int:
     try:
         import torch
@@ -2196,11 +2844,17 @@ def main() -> int:
               f"this checkout", file=sys.stderr)
         return 2
 
+    if sys.argv[1:2] == ["--nccl-rank"]:
+        return nccl_rank(sys.argv[2])
     phase_device()
     phase_build()
     if sys.argv[1:] == ["--mma"]:
         phase_kernel_mma()
         phase_tree_pred_mma()
+        return 0
+    if sys.argv[1:] == ["--nccl"]:
+        run5 = phase_slice(N_KERNEL, "hermite4_block")
+        phase_mesh_nccl(run5, phase_ensemble_slice(*ENSEMBLES[0]))
         return 0
     records = phase_kernels()
     mma = phase_kernel_mma()
@@ -2212,16 +2866,21 @@ def main() -> int:
     phase_tree_parity()
     phase_slice(8192, "hermite4")
     run5 = phase_slice(N_KERNEL, "hermite4_block")
-    phase_stride_slice(run5)
+    stride5 = phase_stride_slice(run5)
     tree, checked, tree_runs = phase_tree_slice()
     phase_tree_stride(tree_runs)
+    tree_run = tree_runs["geometric"]
     del tree_runs
     ensembles = [phase_ensemble_slice(*e) for e in ENSEMBLES]
-    phase_cli()
+    cli = phase_cli()
     drv = phase_driver(run5["s_per_myr"])
     phase_driver(run5["s_per_myr"], stride=STRIDE,
                  unstrided_s_per_myr=drv["s_per_myr"])
     phase_ensemble_driver()
+    mesh_err = phase_mesh_virtual(run5, tree_run, ensembles[0])["rel_err"]
+    mesh_launches = phase_mesh_world(run5, stride5, tree_run, ensembles[0],
+                                     cli, drv)
+    phase_mesh_nccl(run5, ensembles[0])
     # launches: kernels 1-3 from the N_TREE tree-tier run, which exercises
     # all three, the error the worst of the kernel phases and that run's
     # shapes; the group window from the 64 x 1000 ensemble
@@ -2236,7 +2895,7 @@ def main() -> int:
                     **{k: chk[k] for k in ("ms", "mma_ms", "bound_ms",
                                            "bound_by", "bound_pipe")
                        if k in chk}})
-    group["launches"] = ensembles[0]["nbody_rows_group"]
+    group["launches"] = ensembles[0]["launches"]["nbody_rows_group"]
     records.append(group)
     # the matmul bodies: launches from the driver at N_KERNEL (phase 6b),
     # the error the worst of phase 3d's and of the tree run's shapes
@@ -2246,7 +2905,18 @@ def main() -> int:
             rec["max_abs_err"] = max(rec["max_abs_err"],
                                      checked[rec["name"]]["max_abs_err"])
     records.extend(mma)
+    # under a mesh (7m's virtual ranks, 7n's world of one): the worst error
+    # of each kernel's local bodies, and its launches on the mesh paths
+    for rec in records:
+        if rec["name"] in mesh_err:
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     mesh_err[rec["name"]])
+        rec["mesh_launches"] = mesh_launches.get(rec["name"], 0)
     print(json.dumps({"kernels": records}), flush=True)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

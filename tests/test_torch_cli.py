@@ -73,11 +73,46 @@ def test_same_config_as_jax(argv):
 ])
 def test_not_ported_flags_refused_before_any_run(flags, tmp_path,
                                                  monkeypatch):
+    """The multi-device flags are ported. In a plain process a mesh of 4
+    devices is refused with a ValueError naming torchrun, and the mesh
+    backends without a mesh with the JAX package's ValueError, both before
+    any file is written; --orbax_dir runs and writes the DCP tree at every
+    save."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["-n", "8", "-rc", "1", "-f", "x", "--device", "cpu"]
-                 + flags)
+    argv = ["-n", "8", "-rc", "1", "-f", "x", "--device", "cpu"] + flags
+    if flags[0] == "--orbax_dir":
+        from al26_tpu_torch.io.orbax_backend import latest_step
+
+        assert cli.main(argv + ["-t_f", "0.02"]) == 0
+        # the 101 saves of the 1000 steps: after steps 1, 11, ..., 991
+        # and the final one
+        trees = [d for d in os.listdir("ob") if d.isdigit()]
+        assert len(trees) == 101 and latest_step("ob") == 1000
+        return
+    match = ("torchrun --nproc_per_node 4" if flags[0] == "--mesh_shape"
+             else "requires a device mesh")
+    with pytest.raises(ValueError, match=match):
+        cli.main(argv)
     assert os.listdir(tmp_path) == []
+
+
+def test_mesh_of_one_runs_through_the_cli(tmp_path, monkeypatch):
+    """--mesh_shape 1 in a plain process: a world of one, the mesh path,
+    the same files and final state as the run without a mesh."""
+    monkeypatch.chdir(tmp_path)
+    base = ["-n", "16", "-rc", "1", "-t_f", "0.05", "--device", "cpu"]
+    assert cli.main(base + ["-f", "m", "--mesh_shape", "1",
+                            "--force_impl", "ring"]) == 0
+    assert cli.main(base + ["-f", "p"]) == 0
+    names = lambda p: sorted(f[1:] for f in os.listdir(".")
+                             if f.startswith(p + "-"))
+    assert names("m") == names("p") and len(names("m")) > 3
+    a, b = (cluster_to_numpy(particles_to_cluster(
+        load_state(f"{p}-state-00006.pkl.zst").cluster, device="cpu"))
+        for p in ("m", "p"))
+    for k in ("pos", "vel", "slr"):
+        np.testing.assert_allclose(a[k], b[k], rtol=1e-12,
+                                   atol=1e-12 * np.abs(b[k]).max())
 
 
 def test_gravity_stride_runs_on_cpu(tmp_path, monkeypatch):

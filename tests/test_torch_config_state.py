@@ -112,9 +112,11 @@ def test_state_and_aux_from_numpy_round_trip():
 
 
 def test_not_ported_options_raise():
-    # fractal ICs and the tree tier are ported; the tree under a device
-    # mesh is not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # fractal ICs, the tree tier and the tree under a device mesh are
+    # ported; a mesh whose size does not divide the tree's block count
+    # (n = 32 at the default leaf: 2 blocks) raises the JAX package's
+    # ValueError
+    with pytest.raises(ValueError, match="divide by the mesh"):
         init_cluster(SimConfig(n=32, model="fractal", force_impl="tree",
                                mesh_shape=(8,)), device="cpu")
     with pytest.raises(ValueError):

@@ -249,20 +249,22 @@ def test_ensemble_driver_grid_resume_and_postprocess(tmp_path):
 
 
 def test_refusals_come_before_any_run(tmp_path):
-    """What is not ported raises NotImplementedError naming its ROADMAP
-    item before anything is written; the gravity stride is ported for
-    single runs, and an ensemble refuses it with the JAX package's
-    ValueError; a cuda run without a card raises."""
+    """The multi-device options are ported. What a run cannot do raises
+    the JAX package's ValueError before anything is written: a mesh of 2
+    in a plain process (a world of one; the message names torchrun), the
+    mesh backends without a mesh, a 1-D mesh_shape for an ensemble, and
+    the gravity stride for an ensemble; orbax_dir runs (the DCP tree at
+    every save); a cuda run without a card raises."""
     with _Cwd(tmp_path):
-        for extra in ({"mesh_shape": (2,)}, {"force_impl": "sharded"},
-                      {"force_impl": "ring"}, {"orbax_dir": "ob"}):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+        for extra, match in (({"mesh_shape": (2,)}, "torchrun"),
+                             ({"force_impl": "sharded"}, "device mesh"),
+                             ({"force_impl": "ring"}, "device mesh")):
+            with pytest.raises(ValueError, match=match):
                 driver.run(TConfig(n=8, filename="x", **extra),
                            progress=False, device="cpu")
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                driver.run_ensemble(TConfig(n=8, ensemble=2, **extra),
-                                    progress=False, device="cpu")
-        driver.check_ported(TConfig(n=8, gravity_stride=2))
+        with pytest.raises(ValueError, match="2-tuple"):
+            driver.run_ensemble(TConfig(n=8, ensemble=2, mesh_shape=(2,)),
+                                progress=False, device="cpu")
         with pytest.raises(ValueError, match="perf-ladder flags"):
             driver.run_ensemble(TConfig(n=8, ensemble=2, gravity_stride=2),
                                 progress=False, device="cpu")
@@ -271,6 +273,12 @@ def test_refusals_come_before_any_run(tmp_path):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 driver.run(TConfig(n=8, filename="x"), progress=False)
             assert os.listdir(".") == []
+    from al26_tpu_torch.io.orbax_backend import latest_step
+
+    with _Cwd(tmp_path / "orbax"):
+        driver.run(TConfig(filename="o", orbax_dir="tree", **KW),
+                   progress=False, device="cpu")
+        assert latest_step("tree") == 20
 
 
 @pytest.mark.skipif(not os.path.exists(REF_POSTPROCESS),

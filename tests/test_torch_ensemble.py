@@ -31,6 +31,7 @@ import torch
 
 from al26_tpu_torch.config import SimConfig
 from al26_tpu_torch.ops import cuda_nbody as cn
+from al26_tpu_torch.ops.nbody import acc_jerk_pot_dense
 from al26_tpu_torch.parallel import ensemble as ens
 from al26_tpu_torch.state import (
     aux_from_numpy, cluster_to_numpy, state_from_numpy,
@@ -391,8 +392,52 @@ def test_cache_gate(monkeypatch):
     "ensemble_run_steps_2d",
 ])
 def test_mesh_entry_points_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        getattr(ens, name)(None, None)
+    """The mesh entry points are ported (tests/test_torch_parallel.py
+    holds them against the JAX meshes in gloo worlds of 2 and 4). Here
+    each runs in a world of one on the CPU, next to the one-device path
+    it must equal: 2 leapfrog realizations of 24 stars, f64."""
+    cfg = SimConfig(n=24, rc=1.0, final_time=1.0, seed=4,
+                    no_massive_star_requirement=True)
+    bs, ba, cfgs = ens.init_ensemble(cfg, 2, device="cpu")
+    cfg = cfgs[0]
+    m1 = ens.make_ensemble_mesh(device="cpu")
+    m2 = ens.make_ensemble2d_mesh(1, 1, device="cpu")
+    c = bs.cluster
+    if name == "make_ensemble_mesh":
+        assert m1.mesh_dim_names == ("ens",) and m1.size() == 1
+    elif name == "make_ensemble2d_mesh":
+        assert m2.mesh_dim_names == ("ens", "rows") and m2.size() == 1
+    elif name in ("shard_ensemble", "shard_ensemble_2d"):
+        s, a = getattr(ens, name)(bs, ba, m1 if name == "shard_ensemble"
+                                  else m2)
+        assert torch.equal(s.cluster.pos, c.pos)
+        assert torch.equal(a.hm_idx, ba.hm_idx)
+    elif name in ("ensemble2d_acc_pot", "ensemble2d_fresh_cache"):
+        acc, pot = (ens.ensemble2d_acc_pot(c.pos, c.vel, c.mass, m2,
+                                           cfg.eps2, pot_eps2=1e-30)
+                    if name == "ensemble2d_acc_pot"
+                    else ens.ensemble2d_fresh_cache(bs, cfg, m2))
+        for k in range(2):
+            a, _, _ = acc_jerk_pot_dense(c.pos[k], c.vel[k], c.mass[k],
+                                         cfg.eps2)
+            np.testing.assert_allclose(acc[k].numpy(), a.numpy(),
+                                       rtol=1e-12, atol=1e-12)
+            assert acc.shape == (2, 24, 3) and pot.shape == (2, 24)
+    else:
+        want = ens.ensemble_run_steps(bs, ba, cfg, 2)
+        if name == "ensemble_step_2d":
+            got = ens.ensemble_step_2d(ens.ensemble_step_2d(bs, ba, cfg, m2),
+                                       ba, cfg, m2)
+        elif name == "ensemble_run_steps_2d":
+            got = ens.ensemble_run_steps_2d(bs, ba, cfg, 2, m2)
+        else:
+            cache = ens.ensemble2d_fresh_cache(bs, cfg, m2)
+            got, _ = ens.ensemble_run_steps_2d_cached(bs, cache, ba, cfg, 2,
+                                                      m2)
+        np.testing.assert_allclose(got.cluster.pos.numpy(),
+                                   want.cluster.pos.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+        assert torch.equal(got.step_count, want.step_count)
 
 
 def test_port_imports_no_jax():

@@ -108,14 +108,22 @@ def test_kernel_path_f32_matches_jax(integ, extra):
 
 
 def test_not_ported_backends_raise():
+    """The mesh backends are ported: without a mesh they raise the JAX
+    package's ValueError; under a mesh (a world of one here) every one
+    of them steps, equal to the single-device step to f64 round-off."""
+    from al26_tpu_torch.parallel.sharded import make_mesh
     from al26_tpu_torch.sim import init_cluster
 
     ts, ta, tcfg = init_cluster(SimConfig(n=32, seed=2), device="cpu")
     for fi in ("sharded", "ring"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="requires a device mesh"):
             port_step.step(ts, ta, tcfg, force_impl=fi)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_step.step(ts, ta, tcfg, mesh=object())
+    mesh = make_mesh(1, device="cpu")
+    one = port_step.step(ts, ta, tcfg)
+    for fi in ("auto", "sharded", "ring"):
+        got = port_step.step(ts, ta, tcfg, mesh=mesh, force_impl=fi)
+        _close(got.cluster.pos.numpy(), one.cluster.pos.numpy(), 1e-12,
+               1e-12)
     # the gravity stride is ported: run_steps engages it on this path
     strided = tcfg.replace(integrator="hermite4_block", k_fast=8,
                            gravity_stride=2)

@@ -103,8 +103,17 @@ def test_tree_config_guards_and_resolution():
                      device="cpu")
     with pytest.raises(ValueError, match="tree_mac"):
         init_cluster(SimConfig(**base, tree_mac="nope"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cluster(SimConfig(**base, mesh_shape=(8,)), device="cpu")
+    # under a mesh: hermite4_block at every N, a block count that divides
+    # by the mesh size (300 stars at leaf 16: 32 blocks; at leaf 128: 4)
+    _, _, mcfg = init_cluster(SimConfig(**base, mesh_shape=(8,)),
+                              device="cpu")
+    assert mcfg.integrator == "hermite4_block"
+    with pytest.raises(ValueError, match="hermite4_block"):
+        init_cluster(SimConfig(**base, mesh_shape=(8,),
+                               integrator="leapfrog"), device="cpu")
+    with pytest.raises(ValueError, match="divide by the mesh"):
+        init_cluster(SimConfig(**dict(base, tree_leaf=128),
+                               mesh_shape=(8,)), device="cpu")
     # a step() caller bypassing init cannot run the tree under hermite4
     ts, ta, tcfg = init_cluster(SimConfig(**base), device="cpu")
     with pytest.raises(ValueError, match="supports integrator"):
@@ -114,7 +123,8 @@ def test_tree_config_guards_and_resolution():
     from al26_tpu.sim.init import resolve_integrator as jax_resolve
 
     for kw in ({"n": 10000}, {"n": 512}, {"n": 512, "tree_mac": "relative"},
-               {"n": 20000, "integrator": "leapfrog"}):
+               {"n": 20000, "integrator": "leapfrog"},
+               {"n": 512, "tree_leaf": 16, "mesh_shape": (4,)}):
         c = dict(force_impl="tree", **kw)
         got = resolve_integrator(SimConfig(**c), m_total=0.6 * kw["n"])
         want = jax_resolve(JaxConfig(**c), m_total=0.6 * kw["n"])
