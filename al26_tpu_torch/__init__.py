@@ -16,7 +16,9 @@ direct summation or force_impl="tree": sim.init_cluster, then
 sim.run_steps / sim.run_steps_cached; and ensembles of realizations on
 one device (parallel.ensemble: init_ensemble, then ensemble_run_steps or
 ensemble_fresh_cache + ensemble_run_steps_cached), whose flattened step
-sweeps block-diagonal groups through kernel 1's group windows.
+sweeps block-diagonal groups through kernel 1's group windows; and the
+analysis layer (plotting: the readers, the snapshot diagnostics on
+tensors, the ensemble post-processor and the figure scripts).
 """
 import torch
 

@@ -238,16 +238,52 @@ def min_intercept_time(pos, vel, lm_mask, hm_mask) -> torch.Tensor:
     return torch.sqrt(torch.min(t2))
 
 
-def local_densities(pos, mass, k: int = 10) -> torch.Tensor:
+LOCAL_DENSITY_BLOCK_ELEMS = 1 << 26   # d2 entries a row block holds
+
+
+def local_density_block(n: int) -> int:
+    """Rows a block of `nearest_neighbours` takes at N = n: at most 2^26
+    d2 entries (the [B, N, 3] f64 differences are 1.6 GB; 163 rows at
+    N = 409600)."""
+    return max(1, min(n, LOCAL_DENSITY_BLOCK_ELEMS // max(n, 1)))
+
+
+def nearest_neighbours(pos, k: int = 10, block: int | None = None,
+                       rows=None):
+    """The k nearest other stars of every row (or of the row indices
+    `rows`), by blocks of `block` rows (default `local_density_block(N)`):
+    a block's squared distances to all N columns and their k + 1 smallest
+    (neighbour 0 is the star itself). Returns (indices [R, k], squared
+    distances [R, k]), nearest first. Peak memory O(block * N); a row's
+    result does not depend on the blocks, since it sees the same columns
+    in the same order. A tie at the k-th neighbour is resolved by index
+    order in neither this nor the JAX package (torch.topk,
+    jax.lax.top_k)."""
+    n = pos.shape[0]
+    block = local_density_block(n) if block is None else block
+    if rows is None:
+        rows = torch.arange(n, device=pos.device)
+    nbrs, d2s = [], []
+    for s in range(0, rows.shape[0], block):
+        d2 = torch.sum((pos[rows[s:s + block], None, :] - pos[None, :, :])
+                       ** 2, dim=-1)
+        top = torch.topk(d2, k + 1, dim=1, largest=False, sorted=True)
+        nbrs.append(top.indices[:, 1:k + 1])
+        d2s.append(top.values[:, 1:k + 1])
+    return torch.cat(nbrs, 0), torch.cat(d2s, 0)
+
+
+def local_densities(pos, mass, k: int = 10,
+                    block: int | None = None) -> torch.Tensor:
     """10th-nearest-neighbour local mass density per star
-    (al26_plot.py:324-371): rho_i = sum(mass of k nearest) / (4/3 pi d_k^3).
-    Dense O(N^2); diagnostics only."""
-    d2 = torch.sum((pos[:, None, :] - pos[None, :, :]) ** 2, dim=-1)
-    # neighbour 0 is self; take 1..k
-    idx = torch.topk(d2, k + 1, dim=1, largest=False, sorted=True).indices
-    nbr = idx[:, 1:k + 1]
+    (al26_plot.py:324-371): rho_i = sum(mass of k nearest) / (4/3 pi d_k^3),
+    the neighbours from `nearest_neighbours` by row blocks. Each row's
+    value is that of one dense [N, N] sweep. The JAX counterpart
+    (al26_tpu/ops/nbody.py local_densities) forms [N, N, 3] at once (R6:
+    252 GB in f64 at N = 102400)."""
+    nbr, d2 = nearest_neighbours(pos, k, block)
     m_sum = torch.sum(mass[nbr], dim=1)
-    d_k = torch.sqrt(torch.gather(d2, 1, nbr[:, -1:]))[:, 0]
+    d_k = torch.sqrt(d2[:, -1])
     four_thirds_pi = 4.18879020479  # constant as written in al26_plot.py:327
     return m_sum / (four_thirds_pi * d_k**3)
 

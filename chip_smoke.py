@@ -12,7 +12,9 @@ Phases, one result line each (any failure exits non-zero):
 
   1. device   the card's name and power limit (nvidia-smi), CUDA present,
               TF32 off; the maximum SM clock (nvidia-smi) and the SM
-              count, which give the SFU's rsqrt rate of the bounds;
+              count, which give the SFU's rsqrt rate of the bounds; a
+              report of the host packages the io and analysis layers
+              use (zstandard, tqdm, pandas, matplotlib, scipy);
   2. build    nvcc builds csrc/nbody.cu and csrc/tree.cu from this checkout,
               one nvcc each, started together (timed; the ptxas lines);
   3. kernels  kernels 1 and 2's FMA bodies against their f64 plain
@@ -160,6 +162,25 @@ sweep, as in the JAX package) and the entry path of a user:
               s/Myr with the saves beside 6b's;
   6c. ensemble driver  sim.driver.run_ensemble, 64 x 1000, 20 steps: the
               64 pt-<k> folders and their files, s/Myr with the saves.
+  6e. analysis  the analysis layer (al26_tpu_torch.plotting) on the files
+              of 6b and 6c and on 5b's live state, every float column
+              widened to f64: the post-processor's main over 6c's grid
+              (64 x 1000 x 2 isotopes x 5 models = 640 000 rows, written
+              by io.compression's writer, which the line names), read
+              back by the port's reader, every yield_ratio_nodecay equal
+              bitwise to numpy's ratio of the last yields row to the
+              stable mass; on one 6c state calc_etot (the run's softening
+              and eps2 = 0.01), calc_local_densities,
+              calc_cluster_half_mass, calc_sn_times and
+              calc_global_model_yield (both radius methods) on the card
+              against device="cpu", 1e-12 relative; calc_etot and
+              calc_local_densities on the card at N = 32768 (6b's last
+              file) and N = 409600 (5b after 5 steps), each with its
+              seconds and peak memory, the densities of 256 random rows
+              against a per-row f64 brute force (a full sort): the
+              neighbour sets equal, the values at 1e-12;
+              calc_disk_final_enrichment on 6b's yields (seconds); no
+              kernel launched.
 
 The device meshes (torch.distributed; parallel.sharded, ring, tree_mesh
 and the ensemble meshes), after 6c:
@@ -194,7 +215,7 @@ and the ensemble meshes), after 6c:
               says the mesh phases ran a world of one.
 
 The run order: 1, 2, 3, 3d, 3b, 3c, 4, 4d, 4b, 4c, 5, 5s, 5b, 5t, 5c, 6,
-6b, 6d, 6c, 7m, 7n, 7p.
+6b, 6d, 6c, 6e, 7m, 7n, 7p.
 
 Then one JSON line with every kernel's launches (kernels 1-3 from phase 5b,
 the windowed kernel from the 64 x 1000 run of phase 5c, the matmul kernels
@@ -274,6 +295,10 @@ STRIDE = 4
 MESH_D = 4
 MESH_K = 256
 MESH_REPS = 20
+# the analysis phase (6e): card against CPU and against the brute force,
+# in f64; the rows of the brute force
+ANALYSIS_TOL = 1e-12
+ANALYSIS_ROWS = 256
 STRIDE_REF = {"pos_rms_pc": 4.2728e-4, "slr_total_rel": 2.0874e-2}
 STRIDE_REF_TOL = 0.1
 
@@ -529,7 +554,8 @@ def phase_device():
     # a report for the port's io/ slice (its checkpoints are
     # zstd-compressed); it checks nothing
     _line("host packages", imports=_importable("zstandard", "tqdm",
-                                               "pandas"))
+                                               "pandas", "matplotlib",
+                                               "scipy"))
 
 
 def _importable(*names) -> dict:
@@ -2174,7 +2200,8 @@ def phase_driver(slice_s_per_myr: float, stride: int = 1,
         _fail(f"driver (stride {stride}): "
               f"{[k for k, v in checks.items() if not v]} failed")
     return {"launches": launches, "state": res.state,
-            "s_per_myr": wall / (steps * res.cfg.dt)}
+            "s_per_myr": wall / (steps * res.cfg.dt), "base": base,
+            "state_files": states}
 
 
 def phase_ensemble_driver():
@@ -2221,6 +2248,208 @@ def phase_ensemble_driver():
     if not all(checks.values()):
         _fail(f"ensemble driver: {[k for k, v in checks.items() if not v]}"
               " failed")
+    return {"root": tmp, "dirs": dirs, "n": 1000}
+
+
+def _f64_particles(p):
+    """A Particles table with its float columns widened to f64 (the dtype
+    the JAX package's analysis tests compute in)."""
+    import numpy as np
+
+    from al26_tpu_torch.io.compat import Particles
+
+    return Particles({k: (v.astype(np.float64)
+                          if np.issubdtype(v.dtype, np.floating) else v)
+                      for k, v in p.columns().items()})
+
+
+def _card_vs_cpu(name, fn, checks: dict, errs: dict) -> None:
+    """fn(device) on the card and on the CPU: every float at 1e-12
+    relative (a zero where the other is zero)."""
+    import numpy as np
+
+    got, want = fn("cuda"), fn("cpu")
+    got = np.concatenate([np.ravel(np.asarray(g, dtype=np.float64))
+                          for g in (got if isinstance(got, tuple)
+                                    else (got,))])
+    want = np.concatenate([np.ravel(np.asarray(w, dtype=np.float64))
+                           for w in (want if isinstance(want, tuple)
+                                     else (want,))])
+    scale = np.where(want == 0.0, 1.0, np.abs(want))
+    errs[name] = float(np.max(np.abs(got - want) / scale)) if got.size else 0.0
+    checks[name] = got.shape == want.shape and errs[name] <= ANALYSIS_TOL
+
+
+def _density_at_size(state, sample: int, seed: int) -> dict:
+    """calc_etot and calc_local_densities on the card (f64), each timed
+    with its peak memory; on `sample` random rows the densities against a
+    per-row f64 brute force (a full sort of each row's squared
+    distances): the neighbour sets equal, the values at 1e-12."""
+    import numpy as np
+    import torch
+
+    from al26_tpu_torch.ops import nbody
+    from al26_tpu_torch.plotting import lib
+
+    out = {"n": len(state.cluster)}
+    for name, call in (("etot", lambda: lib.calc_etot(state)),
+                       ("local_densities",
+                        lambda: lib.calc_local_densities(state.cluster))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        val = call()
+        torch.cuda.synchronize()
+        out[name + "_s"] = time.perf_counter() - t0
+        out[name + "_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[name] = val
+    rho = out.pop("local_densities")
+    out["etot"] = float(out["etot"])
+    pos, _, mass = lib._pos_vel_mass(state.cluster, torch.device("cuda"))
+    rng = np.random.default_rng(seed)
+    rows = torch.as_tensor(np.sort(rng.choice(out["n"], sample,
+                                              replace=False)),
+                           device=pos.device)
+    nbr, _ = nbody.nearest_neighbours(pos, rows=rows)
+    d2 = torch.sum((pos[None, :, :] - pos[rows][:, None, :]) ** 2, dim=-1)
+    d2s, order = torch.sort(d2, dim=1, stable=True)
+    brute_nbr = order[:, 1:11]
+    brute = (torch.sum(mass[brute_nbr], dim=1)
+             / (4.18879020479 * torch.sqrt(d2s[:, 10]) ** 3)).cpu().numpy()
+    got = rho[rows.cpu().numpy()]
+    out["brute_rows"] = sample
+    out["brute_rel_err"] = float(np.max(np.abs(got - brute) / brute))
+    out["checks"] = {
+        "finite": bool(np.isfinite(rho).all() and np.isfinite(out["etot"])),
+        "densities_positive": bool((rho > 0).all()),
+        "brute_neighbour_sets": bool(torch.equal(
+            torch.sort(nbr, 1).values, torch.sort(brute_nbr, 1).values)),
+        "brute_values": out["brute_rel_err"] <= ANALYSIS_TOL,
+    }
+    _line(f"analysis n={out['n']}", **out)
+    if not all(out["checks"].values()):
+        _fail(f"analysis n={out['n']}: "
+              f"{[k for k, v in out['checks'].items() if not v]} failed")
+    return out
+
+
+def phase_analysis(grid: dict, drv: dict, tree_run: dict) -> None:
+    """The analysis layer (al26_tpu_torch.plotting) on the files 6b and 6c
+    wrote and on 5b's live state, in f64 (every float column widened):
+    the post-processor over 6c's 64 x 1000 grid (640 000 rows, each
+    yield_ratio_nodecay against numpy's ratio of the last yields row to
+    the stable mass, bitwise); the five snapshot diagnostics on one 6c
+    state, card against CPU at 1e-12 relative; calc_etot and
+    calc_local_densities at N = 32768 (6b's last file) and N = 409600
+    (5b, after 5 steps), timed with their peak memory, the densities on
+    256 rows against a brute force; the disc-lifetime interpolation on
+    6b's yields. No kernel is launched (the counts stay 0)."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from al26_tpu_torch.io import compression
+    from al26_tpu_torch.io.compat import State, cluster_to_particles
+    from al26_tpu_torch.plotting import lib, postprocess
+    from al26_tpu_torch.sim import driver
+    from al26_tpu_torch.units import msol, myr
+
+    _reset_launches()
+    checks, errs = {}, {}
+    out = os.path.join(grid["root"], "all-sims-ratios.pkl.zst")
+    t0 = time.perf_counter()
+    postprocess.main(grid["root"], out)
+    post_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    df = postprocess._read_table(out)
+    read_s = time.perf_counter() - t0
+    simset = sorted(glob.glob(os.path.join(grid["root"], "pt-*", "pt*", "")))
+    sims = sorted(glob.glob(simset[0] + "pt-*/")) if simset else []
+    want = []
+    for sim in sims:
+        y = lib.read_yields(glob.glob(sim + "*-yields.ubj.zst")[0])
+        c = lib.read_state(sorted(glob.glob(sim + "*-state-*.zst"))[-1]).cluster
+        per_iso = []
+        for iso, stable in (("26al", "27al"), ("60fe", "56fe")):
+            m_st = np.asarray(getattr(c, "mass_" + stable).value_in(msol),
+                              dtype=np.float64)
+            last = {ch: np.asarray(getattr(y, f"{ch}_{iso}")[-1],
+                                   dtype=np.float64)
+                    for ch in ("local", "global", "sne")}
+            per_iso.append(np.stack(
+                [0.0 + last[m] for m in ("local", "global", "sne")]
+                + [0.0 + last["local"] + last["sne"],
+                   0.0 + last["global"] + last["sne"]], -1) / m_st[:, None])
+        want.append(np.stack(per_iso, 1).reshape(-1))      # star, iso, model
+    want = np.concatenate(want) if want else np.zeros(0)
+    got = df["yield_ratio_nodecay"].to_numpy()
+    checks["table_rows"] = len(df) == len(grid["dirs"]) * grid["n"] * 2 * 5
+    checks["table_sims"] = len(sims) == len(grid["dirs"])
+    checks["nodecay_bitwise"] = (got.shape == want.shape
+                                 and np.array_equal(got, want))
+    checks["decay_finite"] = bool(np.isfinite(df["yield_ratio_decay"]).all())
+
+    # the five diagnostics, card against CPU, on one 6c state
+    st = lib.read_state(sorted(glob.glob(sims[0] + "*-state-*.zst"))[-1])
+    st = State(_f64_particles(st.cluster), st.converter, st.metadata)
+    c, md = st.cluster, st.metadata
+    t_now = float(md.time.value_in(myr))
+    first = _f64_particles(lib.read_state(
+        sorted(glob.glob(sims[0] + "*-state-*.zst"))[0]).cluster)
+    t0 = time.perf_counter()
+    _card_vs_cpu("etot", lambda d: lib.calc_etot(st, device=d), checks, errs)
+    _card_vs_cpu("etot_eps2", lambda d: lib.calc_etot(st, eps2=0.01, device=d),
+                 checks, errs)
+    _card_vs_cpu("local_densities",
+                 lambda d: lib.calc_local_densities(c, device=d), checks, errs)
+    _card_vs_cpu("half_mass",
+                 lambda d: lib.calc_cluster_half_mass(c, device=d), checks,
+                 errs)
+    _card_vs_cpu("sn_times", lambda d: lib.calc_sn_times(
+        first, metadata=md, device=d)[0], checks, errs)
+    checks["sn_masses_equal"] = (
+        lib.calc_sn_times(first, metadata=md, device="cuda")[1]
+        == lib.calc_sn_times(first, metadata=md, device="cpu")[1])
+    for method in ("halfmass", "virial"):
+        _card_vs_cpu("global_yield_" + method,
+                     lambda d: lib.calc_global_model_yield(
+                         c, t_now, 0.01, method, metadata=md, device=d),
+                     checks, errs)
+    small_s = time.perf_counter() - t0
+
+    # at size: 6b's last file, 5b's live state
+    big = lib.read_state(drv["state_files"][-1])
+    big = State(_f64_particles(big.cluster), big.converter, big.metadata)
+    at_size = [_density_at_size(big, ANALYSIS_ROWS, 1)]
+    tree_state = State(_f64_particles(cluster_to_particles(
+        tree_run["state5"].cluster)), None,
+        driver._metadata_from_cfg(tree_run["cfg"]))
+    at_size.append(_density_at_size(tree_state, ANALYSIS_ROWS, 2))
+    del tree_state
+
+    # the disc-lifetime interpolation on 6b's yields
+    y = lib.read_yields(drv["base"] + "-yields.ubj.zst")
+    taus = np.asarray(big.cluster.tau_disk.value_in(myr))
+    t0 = time.perf_counter()
+    y = lib.calc_disk_final_enrichment(y, taus)
+    enrich_s = time.perf_counter() - t0
+    checks["enrichment_finite"] = all(
+        np.isfinite(getattr(y, f"{m}_{i}_final")).all()
+        for m in ("global", "local", "sne") for i in ("26al", "60fe"))
+    launches = _launches()
+    checks["no_kernel_launched"] = not any(launches.values())
+    _line("analysis", writer=compression.writer(), table_rows=len(df),
+          table_bytes=os.path.getsize(out), postprocess_s=post_s,
+          read_back_s=read_s, diagnostics_n1000_s=small_s,
+          card_vs_cpu_rel_err=errs, enrichment_n=len(taus),
+          enrichment_s=enrich_s,
+          **{key: {r["n"]: r[key] for r in at_size}
+             for key in ("etot_s", "etot_peak_gb", "local_densities_s",
+                         "local_densities_peak_gb")},
+          launches=launches, checks=checks)
+    if not all(checks.values()):
+        _fail(f"analysis: {[k for k, v in checks.items() if not v]} failed")
 
 
 # --------------------------------------------------------------------------
@@ -2876,7 +3105,8 @@ def main() -> int:
     drv = phase_driver(run5["s_per_myr"])
     phase_driver(run5["s_per_myr"], stride=STRIDE,
                  unstrided_s_per_myr=drv["s_per_myr"])
-    phase_ensemble_driver()
+    grid = phase_ensemble_driver()
+    phase_analysis(grid, drv, tree_run)
     mesh_err = phase_mesh_virtual(run5, tree_run, ensembles[0])["rel_err"]
     mesh_launches = phase_mesh_world(run5, stride5, tree_run, ensembles[0],
                                      cli, drv)
