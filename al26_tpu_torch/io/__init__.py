@@ -1,2 +1,3 @@
 """Checkpoint I/O in the reference's on-disk formats (the port of
-al26_tpu.io, without its orbax backend and native UBJSON codec)."""
+al26_tpu.io: the native UBJSON codec built at first use, and a DCP tree in
+place of its orbax backend)."""

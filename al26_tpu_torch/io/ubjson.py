@@ -1,7 +1,14 @@
 """UBJSON (Draft-12) encoder/decoder: the port's copy of the JAX
-package's pure-Python codec (al26_tpu/io/ubjson.py `dumpb_python` /
-`loadb_python`), byte for byte the same wire format. The JAX package's
-optional C++ accelerator (io/native) is not ported (ROADMAP queue 1).
+package's codec (al26_tpu/io/ubjson.py), byte for byte the same wire
+format. `dumpb` and `loadb` go through the port's native C++ codec
+(io/native/ubjson_native.cpp, built at first use by io.native_build into
+al26_tpu_torch/_build/) as the JAX package's go through its own; numpy
+payloads and the unoptimized wire form take the Python encoder.
+`dumpb_python` and `loadb_python` are the Python codec, the behavioural
+specification. `codec()` names the codec in use: "native", or "python"
+with the reason where no build can be made here (no C++ compiler, no
+Python.h). A compiler that is present and fails raises; nothing falls
+back.
 
 The reference serialises its yields store with py-ubjson + zstd because it
 is ~25x faster than pickle for its list-heavy payload (al26_nbody.py:41,
@@ -13,8 +20,7 @@ the format is implemented here from the Draft-12 spec:
     py-ubjson (which the reference produces) load unchanged;
   * encode emits spec-conforming output that py-ubjson can read back. Large
     homogeneous float lists — the entire payload of a yields file — are
-    written as optimized typed arrays via numpy big-endian buffers, which is
-    why this pure-Python codec matches C-extension speed on the hot path.
+    written as optimized typed arrays via numpy big-endian buffers.
 
 Supported Python types: None, bool, int, float, str, bytes, list/tuple,
 dict (str keys), numpy arrays/scalars.
@@ -22,9 +28,12 @@ dict (str keys), numpy arrays/scalars.
 from __future__ import annotations
 
 import struct
+import threading
 from io import BytesIO
 
 import numpy as np
+
+from . import native_build
 
 # numeric type markers -> (struct fmt, size)
 _INT_TYPES = (
@@ -166,8 +175,60 @@ def encode_key(k: str) -> bytes:
     return buf.getvalue()
 
 
+# the native codec, loaded at first use (_load_native); _codec names it
+_native = None
+_codec = None
+_lock = threading.Lock()
+
+
+def _load_native():
+    """The native codec module, built and loaded on the first call; None
+    where no build can be made here. A failed build raises."""
+    global _native, _codec
+    if _codec is None:
+        with _lock:
+            if _codec is None:
+                why = native_build.unavailable()
+                if why is None:
+                    _native = native_build.load()
+                    _codec = "native"
+                else:
+                    _codec = f"python ({why})"
+    return _native
+
+
+def codec() -> str:
+    """The codec `dumpb` and `loadb` use in this process: "native", or
+    "python (<why no native build>)"."""
+    _load_native()
+    return _codec
+
+
+def native_codec():
+    """The native codec's (dumpb, loadb); RuntimeError where `codec()` is
+    the Python one."""
+    native = _load_native()
+    if native is None:
+        raise RuntimeError(f"the native codec is not in use: {_codec}")
+    return native.dumpb, native.loadb
+
+
 def dumpb(obj, optimized: bool = True) -> bytes:
-    """Serialise `obj` to UBJSON bytes (py-ubjson `dumpb` equivalent)."""
+    """Serialise `obj` to UBJSON bytes (py-ubjson `dumpb` equivalent).
+    Routes through the native codec; numpy payloads and the unoptimized
+    wire form use the Python encoder."""
+    native = _load_native()
+    if native is not None and optimized:
+        try:
+            return native.dumpb(obj)
+        except TypeError:
+            pass  # unsupported type (e.g. numpy array): the Python encoder
+    return dumpb_python(obj, optimized)
+
+
+def dumpb_python(obj, optimized: bool = True) -> bytes:
+    """The Python encoder (the specification the native codec is held
+    to)."""
     buf = BytesIO()
     _encode(buf, obj, optimized)
     return buf.getvalue()
@@ -326,6 +387,16 @@ def _decode_object(r: _Reader):
 
 
 def loadb(data: bytes):
-    """Deserialise UBJSON bytes (py-ubjson `loadb` equivalent)."""
+    """Deserialise UBJSON bytes (py-ubjson `loadb` equivalent), through
+    the native codec where it is built."""
+    native = _load_native()
+    if native is not None:
+        return native.loadb(data)
+    return loadb_python(data)
+
+
+def loadb_python(data: bytes):
+    """The Python decoder (the specification the native codec is held
+    to)."""
     r = _Reader(data)
     return _decode_value(r, r.marker())

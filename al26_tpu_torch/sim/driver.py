@@ -49,7 +49,7 @@ import torch.distributed as dist
 
 from ..config import SimConfig
 from ..io import checkpoint as ckpt
-from ..io import compression
+from ..io import compression, ubjson
 from ..io.compat import (Args, Converter, Metadata, Quantity,
                          cluster_to_particles, particles_to_cluster)
 from ..io.yields_store import Yields
@@ -318,6 +318,7 @@ def run(cfg: SimConfig, progress: bool = True,
     lead = _lead()
     if lead:
         print(f"# checkpoint writer: {compression.writer()}")
+        print(f"# yields codec: {ubjson.codec()}")
 
     # capture BEFORE load_run replaces cfg with the checkpoint's restored
     # config (reference semantics, al26_nbody.py:1647) — whose own reload
@@ -627,6 +628,7 @@ def run_ensemble(cfg: SimConfig, progress: bool = True,
     lead = _lead()
     if lead:
         print(f"# checkpoint writer: {compression.writer()}")
+        print(f"# yields codec: {ubjson.codec()}")
     if cfg.gravity_stride > 1 or cfg.softened_virial or cfg.k_ultra:
         # the opt-in perf ladder is a single-run capability; the ensemble
         # path runs BHTree-parity leapfrog with the raw-potential virial

@@ -16,7 +16,12 @@ Phases, one result line each (any failure exits non-zero):
               report of the host packages the io and analysis layers
               use (zstandard, tqdm, pandas, matplotlib, scipy);
   2. build    nvcc builds csrc/nbody.cu and csrc/tree.cu from this checkout,
-              one nvcc each, started together (timed; the ptxas lines);
+              one nvcc each, started together with the host C++ build of
+              the native UBJSON codec (io/native/ubjson_native.cpp, by
+              io.native_build) (timed; the ptxas lines; the codec's
+              library and seconds). Fails if the codec cannot be built
+              there (the line says why: no compiler, no Python.h) or is
+              not the codec in use;
   3. kernels  kernels 1 and 2's FMA bodies against their f64 plain
               versions on Plummer clusters from init_cluster: kernel 1
               (nbody_rows) at N = 32768 on the full sweep (jerk + raw
@@ -150,7 +155,11 @@ sweep, as in the JAX package) and the entry path of a user:
               f32 --seed 42 -f smoke -v` in a subprocess in a temporary
               directory (1000 steps, 102 saves): the state, yields and CSV
               files and their counts, wall time and s/Myr with the saves,
-              the invariants of the last state; then `-r smoke -nc 50`, its
+              the invariants of the last state, the yields codec the run
+              named ("native" or it fails); the last yields blob decoded
+              through the native and the Python codec (equal, and each
+              re-encodes it to its bytes) with each codec's encode and
+              decode seconds of that payload; then `-r smoke -nc 50`, its
               final state against the uninterrupted run's at the bars of
               phase 4 (and whether the bits matched);
   6b. driver  sim.driver.run at N = 32768, f32, 20 steps, 4 state files:
@@ -181,6 +190,17 @@ sweep, as in the JAX package) and the entry path of a user:
               neighbour sets equal, the values at 1e-12;
               calc_disk_final_enrichment on 6b's yields (seconds); no
               kernel launched.
+  6g. golden  the JAX package's golden N = 1k statistics
+              (tests/golden/n1k_stats.json) from full 1000-step, 10 Myr
+              runs of the port on the card (tests/torch_golden_stats.py):
+              the three modes (default, sn_parity, sn_parity_seba) in
+              f64, plain torch, each held to the round-off bar
+              (tests/golden/n1k_roundoff.json: 10 x the JAX package's own
+              distance under one-ulp nudges, at least 1e-12 relative;
+              integers and time exact), with its seconds and its worst
+              key over its bar; then the default mode in f32, kernel 1c
+              every substep: its distance from the golden and 1c's
+              launches (no bar; 1c must launch).
 
 The device meshes (torch.distributed; parallel.sharded, ring, tree_mesh
 and the ensemble meshes), after 6c:
@@ -215,7 +235,7 @@ and the ensemble meshes), after 6c:
               says the mesh phases ran a world of one.
 
 The run order: 1, 2, 3, 3d, 3b, 3c, 4, 4d, 4b, 4c, 5, 5s, 5b, 5t, 5c, 6,
-6b, 6d, 6c, 6e, 7m, 7n, 7p.
+6b, 6d, 6c, 6e, 6g, 7m, 7n, 7p.
 
 Then one JSON line with every kernel's launches (kernels 1-3 from phase 5b,
 the windowed kernel from the 64 x 1000 run of phase 5c, the matmul kernels
@@ -573,14 +593,40 @@ def _importable(*names) -> dict:
 
 
 def phase_build():
-    """Both sources, one nvcc each, started together."""
+    """Both CUDA sources, one nvcc each, and the native UBJSON codec (the
+    host C++ compiler, in a thread of its own), started together."""
+    import threading
+
+    from al26_tpu_torch.io import native_build, ubjson
     from al26_tpu_torch.ops import cuda_build, cuda_nbody, cuda_tree
 
+    why = native_build.unavailable()
+    if why is not None:
+        _line("build", codec=f"the native codec cannot be built: {why}")
+        _fail(f"the native codec cannot be built here: {why}")
+    codec = {}
+
+    def build_codec():
+        t = time.perf_counter()
+        try:
+            codec["library"] = os.path.relpath(native_build.build(), HERE)
+        except RuntimeError as e:
+            codec["error"] = str(e)
+        codec["seconds"] = time.perf_counter() - t
+
     t0 = time.perf_counter()
+    th = threading.Thread(target=build_codec)
+    th.start()
     built = cuda_build.build_all()
+    th.join()
     cuda_nbody.load()
     cuda_tree.load()
     secs = time.perf_counter() - t0
+    if "error" in codec:
+        _fail(f"the native codec did not build: {codec['error']}")
+    codec["in_use"] = ubjson.codec()
+    if codec["in_use"] != "native":
+        _fail(f"the native codec is not in use: {codec['in_use']}")
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln
                     or "Compiling entry" in ln]
@@ -588,7 +634,7 @@ def phase_build():
     _line("build", seconds=secs,
           libraries={k: os.path.relpath(p, HERE)
                      for k, (p, _) in built.items()},
-          ptxas=ptxas)
+          ptxas=ptxas, codec=codec)
 
 
 def _fma_times(fma, mma, reps: int, warmup: int = 3) -> dict:
@@ -2061,6 +2107,43 @@ def _parity(g, r) -> dict:
                 k for k in g if not np.array_equal(g[k], r[k]))}
 
 
+def _load_file(rel: str):
+    """A module of the checkout (a script, a test helper) loaded by path,
+    so that its directory never goes onto sys.path."""
+    import importlib.util
+
+    name = "_smoke_" + os.path.basename(rel)[:-3]
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _codec_payload(path: str, reps: int = 3) -> dict:
+    """The yields blob at `path` decoded through the native and the Python
+    codec (equal?), then each codec's median encode and decode seconds of
+    its payload over `reps` calls (scripts/compression_tests_torch.py:
+    codec_times, which fails unless both write the same bytes), and
+    whether they re-encode it to the blob's bytes."""
+    from al26_tpu_torch.io import compression, ubjson
+
+    with open(path, "rb") as f:
+        raw = compression.decompress(f.read())
+    try:
+        obj = ubjson.native_codec()[1](raw)
+        data, times = _load_file("scripts/compression_tests_torch.py"
+                                 ).codec_times(obj, reps)
+    except RuntimeError as e:
+        _fail(f"yields payload: {e}")
+    out = {"bytes": len(raw),
+           "decodes_equal": obj == ubjson.loadb_python(raw),
+           "bytes_equal": data == raw}
+    for name, (enc, dec) in times.items():
+        out[f"{name}_encode_s"] = enc
+        out[f"{name}_decode_s"] = dec
+    return out
+
+
 def phase_cli():
     """The CLI as a user runs it, in a subprocess in a temporary
     directory: n = 1000, t_f = 1 Myr (1000 steps, the reference cadence of
@@ -2123,8 +2206,15 @@ def phase_cli():
                                and par["slr_err_over_bar"] <= 1.0
                                and par["mass_exact"])
     writer = [ln for ln in out.splitlines() if "checkpoint writer" in ln]
+    codec = [ln.split(":", 1)[1].strip() for ln in out.splitlines()
+             if ln.startswith("# yields codec:")]
+    checks["native_codec"] = codec == ["native"]
+    payload = _codec_payload(os.path.join(tmp, "smoke-yields.ubj.zst"))
+    checks["payload_decodes_equal"] = payload["decodes_equal"]
+    checks["payload_bytes_equal"] = payload["bytes_equal"]
     _line("cli", n=1000, steps=1000, t_f=1.0, dir=tmp,
           writer=writer[0] if writer else None,
+          codec=codec[0] if codec else None, yields_payload=payload,
           state_files=len(states), csv_rows=csv_rows,
           state_file_bytes=os.path.getsize(states[-1]),
           command_s=wall, **run_t,
@@ -2450,6 +2540,62 @@ def phase_analysis(grid: dict, drv: dict, tree_run: dict) -> None:
           launches=launches, checks=checks)
     if not all(checks.values()):
         _fail(f"analysis: {[k for k, v in checks.items() if not v]} failed")
+
+
+def _golden_run(tgs, mode: str, dtype: str) -> tuple[dict, float]:
+    """One full golden run on the card: its summary and seconds (init to
+    the last step, synchronised)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, cfg = tgs.run_golden(mode, device="cuda", dtype=dtype)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return tgs.summarize(state, cfg), secs
+
+
+def phase_golden() -> None:
+    """The JAX package's golden N = 1k statistics (tests/golden/
+    n1k_stats.json) from full 1000-step runs of the port on the card:
+    each mode in f64 (plain torch; the kernels run f32 only) held to the
+    round-off bar of tests/torch_golden_stats.py, with its seconds and
+    its worst key's distance over its bar; then the default mode in f32,
+    whose sweeps launch kernel 1c every substep: its distance from the
+    golden (relative, each key) and 1c's launches, no bar."""
+    tgs = _load_file("tests/torch_golden_stats.py")
+
+    golden, roundoff = tgs.load("n1k_stats"), tgs.load("n1k_roundoff")
+    modes, checks = {}, {}
+    for mode in tgs.MODES:
+        got, secs = _golden_run(tgs, mode, "f64")
+        dist = tgs.against_golden(got, golden[mode], roundoff[mode])
+        key, ratio = tgs.worst(dist)
+        over = {k: db for k, db in dist.items() if db[0] > db[1]}
+        modes[mode] = {"seconds": secs, "worst_key": key,
+                       "worst_distance_over_bar": ratio,
+                       "n_kicked": got["n_kicked"], "over_bar": over}
+        checks[f"{mode}_within_bar"] = not over
+    _reset_launches()
+    got, secs = _golden_run(tgs, "default", "f32")
+    launches = _launches()
+    want = golden["default"]
+    rel = {k: (abs(got[k] - v) / abs(v) if v else abs(got[k]))
+           for k, v in want.items()}
+    dist = tgs.against_golden(got, want, roundoff["default"])
+    key, ratio = tgs.worst(dist)
+    f32 = {"seconds": secs, "launches_1c": launches["nbody_rows_mma"],
+           "launches": {k: v for k, v in launches.items() if v},
+           "ints": {k: (got[k], want[k]) for k in tgs.INT_KEYS},
+           "max_rel_distance": max(rel.values()),
+           "max_rel_key": max(rel, key=rel.get),
+           "worst_distance_over_bar": ratio, "worst_key": key,
+           "rel_distance": rel}
+    checks["f32_launched_1c"] = f32["launches_1c"] > 0
+    _line("golden", n=tgs.N_GOLDEN, steps=1000, f64=modes, f32=f32,
+          checks=checks)
+    if not all(checks.values()):
+        _fail(f"golden: {[k for k, v in checks.items() if not v]} failed")
 
 
 # --------------------------------------------------------------------------
@@ -3107,6 +3253,7 @@ def main() -> int:
                  unstrided_s_per_myr=drv["s_per_myr"])
     grid = phase_ensemble_driver()
     phase_analysis(grid, drv, tree_run)
+    phase_golden()
     mesh_err = phase_mesh_virtual(run5, tree_run, ensembles[0])["rel_err"]
     mesh_launches = phase_mesh_world(run5, stride5, tree_run, ensembles[0],
                                      cli, drv)
