@@ -279,26 +279,38 @@ def config_from_args(args: argparse.Namespace):
 
 
 def main(argv=None) -> int:
+    from .utils.timing import maybe_start_trace, maybe_stop_trace, span
+
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
+    started = maybe_start_trace()
+    try:
+        with span("cli.main"):
+            _run(cfg, args.device)
+    finally:
+        if started:
+            maybe_stop_trace()
+    return 0
+
+
+def _run(cfg, device) -> None:
     if cfg.ensemble > 1:
         from .sim.driver import run_ensemble
 
-        _, sim_dirs, wall = run_ensemble(cfg, device=args.device)
+        _, sim_dirs, wall = run_ensemble(cfg, device=device)
         print("!!! Finished !!!")
         print(f"{len(sim_dirs)} realizations in {sim_dirs[0]} ...")
         if cfg.verbose:
             print(f"wall time: {wall:.1f} s")
         _close_world()
-        return 0
+        return
     from .sim.driver import run
 
-    result = run(cfg, device=args.device)
+    result = run(cfg, device=device)
     print("!!! Finished !!!")
     if cfg.verbose:
         print(f"wall time: {result.wall_time_s:.1f} s")
     _close_world()
-    return 0
 
 
 def _close_world() -> None:

@@ -19,12 +19,19 @@ Design constraints honoured:
   * SHARED STATE — Yields / Metadata objects are mutated by the jobs;
     the driver must not touch them between submit() and flush(). The run
     driver only reads them after the final flush().
+
+Spans (utils.timing, with tracing on): "io.writer.job" around each job on
+the writer thread, "io.writer.submit_wait" around the hand-off (it blocks
+while the queue is full) and "io.writer.close_wait" around the final
+drain, both on the driver thread.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from typing import Callable, Optional
+
+from ..utils.timing import span
 
 
 class AsyncCheckpointWriter:
@@ -60,7 +67,8 @@ class AsyncCheckpointWriter:
                     return
                 epoch, job = item
                 if epoch != self._bad_epoch:
-                    job()
+                    with span("io.writer.job"):
+                        job()
             except BaseException as e:  # noqa: BLE001 — must cross threads
                 self._error = e
                 self._bad_epoch = epoch
@@ -79,7 +87,8 @@ class AsyncCheckpointWriter:
     def submit(self, job: Callable[[], None]) -> None:
         """Enqueue a save job; re-raises any earlier job's failure."""
         self._reraise()
-        self._q.put((self._epoch, job))
+        with span("io.writer.submit_wait"):
+            self._q.put((self._epoch, job))
 
     def flush(self) -> None:
         """Block until every enqueued job has run; re-raise failures."""
@@ -88,9 +97,10 @@ class AsyncCheckpointWriter:
 
     def close(self) -> None:
         """Flush and stop the worker thread."""
-        self._q.join()
-        self._q.put(self._SENTINEL)
-        self._thread.join()
+        with span("io.writer.close_wait"):
+            self._q.join()
+            self._q.put(self._SENTINEL)
+            self._thread.join()
         self._reraise()
 
     def __enter__(self) -> "AsyncCheckpointWriter":

@@ -24,7 +24,10 @@ Every wrapper checks device, dtype (f32), shape and contiguity. On a CUDA
 tensor it launches its kernel (or raises); on a CPU tensor it runs the
 plain PyTorch version beside it (`nbody_rows_plain`, `nbody_predcols_plain`),
 the counterpart of Pallas interpret mode. `LAUNCHES` counts the kernel
-launches of each wrapper and nothing else.
+launches of each wrapper and nothing else. With tracing on
+(utils.timing), each call of `nbody_rows`, `nbody_predcols` and
+`PredcolsMma` is the span "kernels.nbody_rows", "kernels.nbody_predcols"
+or "kernels.predcols_mma": the wrapper's host time.
 
 The FMA bodies (kernels 1, 1b and 2) sweep on the loop they share with
 the tree's near field (csrc/pair_fma.cuh), and each call is ONE launch:
@@ -69,6 +72,7 @@ from typing import Tuple
 import torch
 
 from ..units import G_INTERNAL
+from ..utils.timing import spanned
 from . import cuda_build
 
 LAUNCHES = {"nbody_rows": 0, "nbody_rows_group": 0, "nbody_predcols": 0,
@@ -619,6 +623,7 @@ def nbody_predcols_plain(pos_rows, vel_rows, row_ids, pos0, vel0, a0, j0,
 # wrappers: the kernel on a CUDA tensor, the plain version on a CPU tensor
 # --------------------------------------------------------------------------
 
+@spanned("kernels.nbody_rows")
 def nbody_rows(pos_rows, vel_rows, row_ids, pos, vel, mass, eps2: float,
                g: float = G_INTERNAL, with_jerk: bool = True,
                with_pot: bool = True, pot_eps2: float | None = None,
@@ -692,6 +697,7 @@ def rows_launcher(pos_rows, vel_rows, row_ids, pos, vel, mass, eps2: float,
     return launch, (acc, jerk, pot)
 
 
+@spanned("kernels.nbody_predcols")
 def nbody_predcols(pos_rows, vel_rows, row_ids, pos0, vel0, a0, j0, mass,
                    tau: torch.Tensor, eps2: float, g: float = G_INTERNAL,
                    use_mxu: bool = False, centre=None):
@@ -878,6 +884,7 @@ class PredcolsMma:
 
         return launch, (acc, jerk)
 
+    @spanned("kernels.predcols_mma")
     def __call__(self, pos_rows, vel_rows, row_ids, tau):
         b = pos_rows.shape[0]
         if b == 0 or self.n == 0:

@@ -14,7 +14,8 @@ target block are summed exactly. On a CUDA tensor it launches the kernel
 in f32 (inputs cast in, outputs cast back, as the Pallas kernel does); on
 a CPU tensor it runs the plain PyTorch version beside it,
 `near_field_plain`, the counterpart of the JAX package's XLA near field.
-`LAUNCHES` counts kernel launches.
+`LAUNCHES` counts kernel launches; with tracing on (utils.timing) each
+call is the span "kernels.near_field".
 
 Both evaluate the list through the same work items (`near_items`): a
 source block that holds only padding slots (s * leaf >= n_true) adds only
@@ -37,6 +38,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..units import G_INTERNAL
+from ..utils.timing import spanned
 from . import cuda_build
 
 LAUNCHES = {"near_field": 0}
@@ -299,6 +301,7 @@ def near_field_launcher(pos_s, mass_s, p2p, n_true: int, eps2, *,
     return launch, (acc, jerk, pot, it.overflow)
 
 
+@spanned("kernels.near_field")
 def near_field(pos_s, mass_s, p2p, n_true: int, eps2, *, leaf: int,
                kavg: int, g: float = G_INTERNAL, pot_eps2=None, vel_s=None,
                with_jerk: bool = False, part=None):

@@ -12,8 +12,10 @@ al26_tpu.ops.integrators).
 The JAX package keeps the data-dependent substep loops on the device
 (`lax.while_loop`, `lax.cond`). Here they are Python loops and branches
 that read `t < dt` (and the mid tier's advance flag) back to the host once
-per substep: one device synchronisation per substep, the integrator-loop
-layer PERF.md lists for measurement.
+per substep: one device synchronisation per substep. Each iteration of a
+substep loop is the span "integrator.substep" and one count of
+`integrator.substeps`; each read-back is the span "integrator.host_read"
+and one count of `host_reads.integrator` (utils.timing).
 """
 from __future__ import annotations
 
@@ -22,9 +24,24 @@ from typing import Tuple
 import torch
 
 from ..units import G_INTERNAL
+from ..utils.timing import count, span
 from .nbody import acc_jerk_pot, acc_pot_dense
 
 _TINY = 1e-30
+
+
+def _host_bool(flag: torch.Tensor) -> bool:
+    """A device flag read back to the host: the host waits here for the
+    device's queued work."""
+    count("host_reads.integrator")
+    with span("integrator.host_read"):
+        return bool(flag)
+
+
+def _substep():
+    """One substep of an integrator loop: counted, and a span."""
+    count("integrator.substeps")
+    return span("integrator.substep")
 
 
 def leapfrog_advance(
@@ -56,10 +73,11 @@ def leapfrog_advance(
     a = acc_fn(pos) if init_acc is None else init_acc
 
     def kdk(p, v, a):
-        v_half = v + 0.5 * h * a
-        p_new = p + h * v_half
-        a_new = acc_fn(p_new)
-        return p_new, v_half + 0.5 * h * a_new, a_new
+        with _substep():
+            v_half = v + 0.5 * h * a
+            p_new = p + h * v_half
+            a_new = acc_fn(p_new)
+            return p_new, v_half + 0.5 * h * a_new, a_new
 
     if final_eval_fn is None:
         for _ in range(n_sub):
@@ -69,10 +87,11 @@ def leapfrog_advance(
     # its evaluation can also produce the potential for the cache
     for _ in range(n_sub - 1):
         pos, vel, a = kdk(pos, vel, a)
-    v_half = vel + 0.5 * h * a
-    pos = pos + h * v_half
-    a_new, pot = final_eval_fn(pos)
-    vel = v_half + 0.5 * h * a_new
+    with _substep():
+        v_half = vel + 0.5 * h * a
+        pos = pos + h * v_half
+        a_new, pot = final_eval_fn(pos)
+        vel = v_half + 0.5 * h * a_new
     return pos, vel, (a_new, None, pot)
 
 
@@ -136,21 +155,22 @@ def hermite4_advance(
 
     p, v = pos, vel
     t = torch.zeros((), dtype=dtype, device=pos.device)
-    while bool(t < dt):                       # one host read per substep
-        h = eta * torch.sqrt(_min_crit(a, j))
-        h = torch.minimum(torch.maximum(h, h_min), dt - t)
-        h2 = h * h
-        # predict
-        pp = p + h * v + 0.5 * h2 * a + (h2 * h / 6.0) * j
-        vp = v + h * a + 0.5 * h2 * j
-        # evaluate
-        a1, j1, pot1 = forces(pp, vp)
-        # correct (Makino & Aarseth 1992 two-stage corrector)
-        v1 = v + 0.5 * h * (a + a1) + (h2 / 12.0) * (j - j1)
-        p1 = p + 0.5 * h * (v + v1) + (h2 / 12.0) * (a - a1)
-        if want_cache:
-            pot = pot1
-        t, p, v, a, j = t + h, p1, v1, a1, j1
+    while _host_bool(t < dt):                 # one host read per substep
+        with _substep():
+            h = eta * torch.sqrt(_min_crit(a, j))
+            h = torch.minimum(torch.maximum(h, h_min), dt - t)
+            h2 = h * h
+            # predict
+            pp = p + h * v + 0.5 * h2 * a + (h2 * h / 6.0) * j
+            vp = v + h * a + 0.5 * h2 * j
+            # evaluate
+            a1, j1, pot1 = forces(pp, vp)
+            # correct (Makino & Aarseth 1992 two-stage corrector)
+            v1 = v + 0.5 * h * (a + a1) + (h2 / 12.0) * (j - j1)
+            p1 = p + 0.5 * h * (v + v1) + (h2 / 12.0) * (a - a1)
+            if want_cache:
+                pot = pot1
+            t, p, v, a, j = t + h, p1, v1, a1, j1
     if want_cache:
         return p, v, (a, j, pot)
     return p, v
@@ -315,84 +335,87 @@ def hermite4_block_advance(
             jf0[:k_ultra]
         pm, vm, am, jm = pf0[k_ultra:], vf0[k_ultra:], af0[k_ultra:], \
             jf0[k_ultra:]
-        while bool(tau < dt):                 # one host read per substep
-            h = eta * torch.sqrt(_min_crit(au, ju))
-            h = torch.minimum(torch.maximum(h, h_min), dt - tau)
-            h2 = h * h
-            tau_new = tau + h
-            hm_nat = eta * torch.sqrt(_min_crit(am, jm))
-            adv_m = ((tau_new - tau_m) >= hm_nat) | (tau_new >= dt)
-            # predictions: ultra over its substep, mid from ITS last update
-            pup = pu + h * vu + 0.5 * h2 * au + (h2 * h / 6.0) * ju
-            vup = vu + h * au + 0.5 * h2 * ju
-            thm = tau_new - tau_m
-            pmp = pm + thm * vm + 0.5 * thm**2 * am + (thm**3 / 6.0) * jm
-            vmp = vm + thm * am + 0.5 * thm**2 * jm
-            if m_s:
-                pu_at, vu_at, crossed = capture(tau, tau_new, pu, vu, au, ju,
-                                                tau)
-                pm_at, vm_at, _ = capture(tau, tau_new, pm, vm, am, jm,
-                                          tau_m)
-                samp_pf = torch.where(crossed, torch.cat([pu_at, pm_at], 1),
-                                      samp_pf)
-                samp_vf = torch.where(crossed, torch.cat([vu_at, vm_at], 1),
-                                      samp_vf)
-            p_cols, v_cols = predict_all(tau_new)
-            p_cols = p_cols.index_copy(0, u_idx, pup).index_copy(0, m_idx,
-                                                                 pmp)
-            v_cols = v_cols.index_copy(0, u_idx, vup).index_copy(0, m_idx,
-                                                                 vmp)
-            au1, ju1 = force_rows_fn(pup, vup, u_idx, p_cols, v_cols)
-            vu1 = vu + 0.5 * h * (au + au1) + (h2 / 12.0) * (ju - ju1)
-            pu1 = pu + 0.5 * h * (vu + vu1) + (h2 / 12.0) * (au - au1)
-            if bool(adv_m):                   # one more host read
-                am1, jm1 = force_rows_fn(pmp, vmp, m_idx, p_cols, v_cols)
-                vm1 = (vm + 0.5 * thm * (am + am1)
-                       + (thm**2 / 12.0) * (jm - jm1))
-                pm1 = (pm + 0.5 * thm * (vm + vm1)
-                       + (thm**2 / 12.0) * (am - am1))
-                pm, vm, am, jm, tau_m = pm1, vm1, am1, jm1, tau_new
-            tau, pu, vu, au, ju = tau_new, pu1, vu1, au1, ju1
+        while _host_bool(tau < dt):           # one host read per substep
+            with _substep():
+                h = eta * torch.sqrt(_min_crit(au, ju))
+                h = torch.minimum(torch.maximum(h, h_min), dt - tau)
+                h2 = h * h
+                tau_new = tau + h
+                hm_nat = eta * torch.sqrt(_min_crit(am, jm))
+                adv_m = ((tau_new - tau_m) >= hm_nat) | (tau_new >= dt)
+                # predictions: ultra over its substep, mid from ITS last
+                # update
+                pup = pu + h * vu + 0.5 * h2 * au + (h2 * h / 6.0) * ju
+                vup = vu + h * au + 0.5 * h2 * ju
+                thm = tau_new - tau_m
+                pmp = pm + thm * vm + 0.5 * thm**2 * am + (thm**3 / 6.0) * jm
+                vmp = vm + thm * am + 0.5 * thm**2 * jm
+                if m_s:
+                    pu_at, vu_at, crossed = capture(tau, tau_new, pu, vu,
+                                                    au, ju, tau)
+                    pm_at, vm_at, _ = capture(tau, tau_new, pm, vm, am, jm,
+                                              tau_m)
+                    samp_pf = torch.where(
+                        crossed, torch.cat([pu_at, pm_at], 1), samp_pf)
+                    samp_vf = torch.where(
+                        crossed, torch.cat([vu_at, vm_at], 1), samp_vf)
+                p_cols, v_cols = predict_all(tau_new)
+                p_cols = p_cols.index_copy(0, u_idx, pup).index_copy(0, m_idx,
+                                                                     pmp)
+                v_cols = v_cols.index_copy(0, u_idx, vup).index_copy(0, m_idx,
+                                                                     vmp)
+                au1, ju1 = force_rows_fn(pup, vup, u_idx, p_cols, v_cols)
+                vu1 = vu + 0.5 * h * (au + au1) + (h2 / 12.0) * (ju - ju1)
+                pu1 = pu + 0.5 * h * (vu + vu1) + (h2 / 12.0) * (au - au1)
+                if _host_bool(adv_m):             # one more host read
+                    am1, jm1 = force_rows_fn(pmp, vmp, m_idx, p_cols, v_cols)
+                    vm1 = (vm + 0.5 * thm * (am + am1)
+                           + (thm**2 / 12.0) * (jm - jm1))
+                    pm1 = (pm + 0.5 * thm * (vm + vm1)
+                           + (thm**2 / 12.0) * (am - am1))
+                    pm, vm, am, jm, tau_m = pm1, vm1, am1, jm1, tau_new
+                tau, pu, vu, au, ju = tau_new, pu1, vu1, au1, ju1
         pf = torch.cat([pu, pm], dim=0)   # fast_idx order
         vf = torch.cat([vu, vm], dim=0)
     else:
         pf, vf, af, jf = pf0, vf0, af0, jf0
-        while bool(tau < dt):                 # one host read per substep
-            h = eta * torch.sqrt(_min_crit(af, jf))
-            h = torch.minimum(torch.maximum(h, h_min), dt - tau)
-            h2 = h * h
-            # predict fast rows
-            pfp = pf + h * vf + 0.5 * h2 * af + (h2 * h / 6.0) * jf
-            vfp = vf + h * af + 0.5 * h2 * jf
-            if m_s:
-                p_at, v_at, crossed = capture(tau, tau + h, pf, vf, af, jf,
-                                              tau)
-                samp_pf = torch.where(crossed, p_at, samp_pf)
-                samp_vf = torch.where(crossed, v_at, samp_vf)
-            if rows_at is not None:
-                # columns predicted in-kernel at tau+h; add the exact
-                # subcycled-fast-column override via source linearity
-                th = tau + h
-                a1, j1 = rows_at(pfp, vfp, fast_idx, th)
-                th2 = th * th
-                pf_pred = (pf0 + th * vf0 + 0.5 * th2 * af0
-                           + (th2 * th / 6.0) * jf0)
-                vf_pred = vf0 + th * af0 + 0.5 * th2 * jf0
-                da, dj = _fast_override_delta(
-                    pfp, vfp, pfp, vfp, pf_pred, vf_pred, mass_f, eps2, g
-                )
-                a1 = a1 + da
-                j1 = j1 + dj
-            else:
-                # columns at tau+h: everyone predicted, fast rows replaced
-                # by their subcycled prediction
-                p_cols, v_cols = predict_all(tau + h)
-                p_cols = p_cols.index_copy(0, fast_idx, pfp)
-                v_cols = v_cols.index_copy(0, fast_idx, vfp)
-                a1, j1 = force_rows_fn(pfp, vfp, fast_idx, p_cols, v_cols)
-            vf1 = vf + 0.5 * h * (af + a1) + (h2 / 12.0) * (jf - j1)
-            pf1 = pf + 0.5 * h * (vf + vf1) + (h2 / 12.0) * (af - a1)
-            tau, pf, vf, af, jf = tau + h, pf1, vf1, a1, j1
+        while _host_bool(tau < dt):           # one host read per substep
+            with _substep():
+                h = eta * torch.sqrt(_min_crit(af, jf))
+                h = torch.minimum(torch.maximum(h, h_min), dt - tau)
+                h2 = h * h
+                # predict fast rows
+                pfp = pf + h * vf + 0.5 * h2 * af + (h2 * h / 6.0) * jf
+                vfp = vf + h * af + 0.5 * h2 * jf
+                if m_s:
+                    p_at, v_at, crossed = capture(tau, tau + h, pf, vf, af, jf,
+                                                  tau)
+                    samp_pf = torch.where(crossed, p_at, samp_pf)
+                    samp_vf = torch.where(crossed, v_at, samp_vf)
+                if rows_at is not None:
+                    # columns predicted in-kernel at tau+h; add the exact
+                    # subcycled-fast-column override via source linearity
+                    th = tau + h
+                    a1, j1 = rows_at(pfp, vfp, fast_idx, th)
+                    th2 = th * th
+                    pf_pred = (pf0 + th * vf0 + 0.5 * th2 * af0
+                               + (th2 * th / 6.0) * jf0)
+                    vf_pred = vf0 + th * af0 + 0.5 * th2 * jf0
+                    da, dj = _fast_override_delta(
+                        pfp, vfp, pfp, vfp, pf_pred, vf_pred, mass_f, eps2, g
+                    )
+                    a1 = a1 + da
+                    j1 = j1 + dj
+                else:
+                    # columns at tau+h: everyone predicted, fast rows replaced
+                    # by their subcycled prediction
+                    p_cols, v_cols = predict_all(tau + h)
+                    p_cols = p_cols.index_copy(0, fast_idx, pfp)
+                    v_cols = v_cols.index_copy(0, fast_idx, vfp)
+                    a1, j1 = force_rows_fn(pfp, vfp, fast_idx, p_cols, v_cols)
+                vf1 = vf + 0.5 * h * (af + a1) + (h2 / 12.0) * (jf - j1)
+                pf1 = pf + 0.5 * h * (vf + vf1) + (h2 / 12.0) * (af - a1)
+                tau, pf, vf, af, jf = tau + h, pf1, vf1, a1, j1
 
     # -- slow-group full step ------------------------------------------
     pos_p, vel_p = predict_all(dt)

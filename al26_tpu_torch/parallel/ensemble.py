@@ -59,6 +59,7 @@ from ..sim.init import init_cluster, resolve_integrator
 from ..sim.step import physics_after_advance, step
 from ..state import map_tensors
 from ..units import G_INTERNAL
+from ..utils.timing import span, spanned
 from .sharded import (
     all_gather_cat, axis_rank, device_mesh, kernel_here, mesh_device,
 )
@@ -144,11 +145,12 @@ def ensemble_step(batch_state, batch_aux, cfg: SimConfig):
                    for k in range(b)])
 
 
+@spanned("ensemble.physics")
 def ensemble_physics_after_advance(batch_state, batch_aux, cfg: SimConfig,
                                    pos_old, pos, vel, r_vir):
     """Steps 3-8 of the physics (sim.step.physics_after_advance) for every
     realization, one realization at a time; pos_old / pos / vel [B, N, 3],
-    r_vir [B]."""
+    r_vir [B]. The span "ensemble.physics"."""
     b = batch_state.cluster.mass.shape[0]
     return _stack([
         physics_after_advance(_take(batch_state, k), _take(batch_aux, k),
@@ -286,20 +288,23 @@ def ensemble_step_flat(batch_state, batch_aux, cfg: SimConfig,
     mtot = torch.sum(c.mass, dim=1)                                 # [B]
     r_vir = -G_INTERNAL * mtot * mtot / (2.0 * u)
 
-    out = advance(
-        pos_f, vel_f, mass_f, dt,
-        integrator=integ, eta=cfg.eta_hermite,
-        n_sub=cfg.leapfrog_n_sub or 16,
-        eps2=eps2, max_substeps=cfg.substeps_max,
-        force_fn=force_fn, acc_fn=acc_fn,
-        # an explicit cfg.k_fast was resolved for ONE realization: the
-        # flattened system needs that capacity per realization, or tight
-        # binaries losing the global top-k race stay in the slow group
-        k_fast=(cfg.k_fast * b) if cfg.k_fast else max(256, (b * n) // 64),
-        force_rows_fn=(force_rows_fn if integ == "hermite4_block"
-                       else None),
-        init_eval=init_eval, final_eval_fn=final_eval_fn,
-    )
+    with span("step.advance"):
+        out = advance(
+            pos_f, vel_f, mass_f, dt,
+            integrator=integ, eta=cfg.eta_hermite,
+            n_sub=cfg.leapfrog_n_sub or 16,
+            eps2=eps2, max_substeps=cfg.substeps_max,
+            force_fn=force_fn, acc_fn=acc_fn,
+            # an explicit cfg.k_fast was resolved for ONE realization: the
+            # flattened system needs that capacity per realization, or
+            # tight binaries losing the global top-k race stay in the slow
+            # group
+            k_fast=((cfg.k_fast * b) if cfg.k_fast
+                    else max(256, (b * n) // 64)),
+            force_rows_fn=(force_rows_fn if integ == "hermite4_block"
+                           else None),
+            init_eval=init_eval, final_eval_fn=final_eval_fn,
+        )
     if cache_ok:
         pos_new, vel_new, (a1, j1, pot1) = out
     else:

@@ -56,7 +56,8 @@ from ..io.yields_store import Yields
 from ..parallel.sharded import local_device
 from ..state import SimState, cluster_to_numpy
 from ..units import myr
-from ..utils.timing import PhaseTimers, maybe_start_trace, maybe_stop_trace
+from ..utils.timing import (PhaseTimers, count, enabled, maybe_start_trace,
+                            maybe_stop_trace, span)
 from .init import SimAux, init_cluster
 
 
@@ -130,8 +131,17 @@ def _yields_mode(cfg, final: bool) -> str:
 
 def _host_copy(state: SimState):
     """(cluster as numpy, time in Myr): the device-to-host copy of a save,
-    made on the driver thread."""
-    return cluster_to_numpy(state.cluster), float(state.time)
+    made on the driver thread. With tracing on, the wait for the device's
+    queued work is a span of its own (an explicit synchronize; the copies
+    would wait for it anyway); each copy is one count of
+    host_reads.driver.host_copy."""
+    if enabled() and state.time.is_cuda:
+        with span("driver.save.device_wait"):
+            torch.cuda.synchronize(state.time.device)
+    with span("driver.save.host_copy"):
+        cluster, t_myr = cluster_to_numpy(state.cluster), float(state.time)
+    count("host_reads.driver.host_copy", len(cluster) + 1)
+    return cluster, t_myr
 
 
 def _save(base, metadata, converter, yields, cluster_np, t_myr, cfg,
@@ -314,71 +324,73 @@ def run(cfg: SimConfig, progress: bool = True,
     """Full checkpointed run (cold start or resume) on `device`; under
     cfg.mesh_shape, this rank's part of the mesh run (module docstring)."""
     t_wall0 = time.time()
+    started = maybe_start_trace()
     device = run_device(device)
     lead = _lead()
     if lead:
         print(f"# checkpoint writer: {compression.writer()}")
         print(f"# yields codec: {ubjson.codec()}")
 
-    # capture BEFORE load_run replaces cfg with the checkpoint's restored
-    # config (reference semantics, al26_nbody.py:1647) — whose own reload
-    # field is empty
-    reload_base = cfg.reload
-    extend_t = cfg.extend_final_time
-    fresh_verbose = cfg.verbose
-    if extend_t is not None and not reload_base:
-        raise ValueError(
-            "extend_final_time is a resume directive: set reload too "
-            "(a cold start takes its schedule from final_time/n_plot)"
-        )
-    if reload_base:
-        state, aux, cfg, metadata, yields, converter = load_run(
-            reload_base, cfg.n_checkpoint, data_dir=data_dir, device=device
-        )
-        # -v is a property of the INVOCATION, not the stored run
-        cfg = cfg.replace(verbose=fresh_verbose)
-        if extend_t is not None:
-            cfg = _extend(cfg, extend_t, float(state.time),
-                          int(state.step_count), [metadata])
-        # the stored run's mesh; every rank has read the files before
-        # rank 0 truncates them
-        mesh = _run_mesh(cfg, state.cluster.n, device)
-        _barrier(mesh)
-        # continue writing at the PATH the user pointed at, not at
-        # metadata.filename (which records only the original base NAME)
-        base = reload_base
-        if lead:
-            _bound_resumed_yields(yields, base, cfg, float(state.time))
-            # a -nc K resume rewrites checkpoints K+1... — drop the
-            # abandoned timeline's higher-numbered state files now
-            _drop_stale_state_files(base, metadata.most_recent_checkpoint)
-            if cfg.orbax_dir:
-                # same for the DCP tree, or its latest_step resumes the
-                # abandoned timeline
-                from ..io.orbax_backend import drop_steps_above
+    with span("driver.init"):
+        # capture BEFORE load_run replaces cfg with the checkpoint's restored
+        # config (reference semantics, al26_nbody.py:1647) — whose own reload
+        # field is empty
+        reload_base = cfg.reload
+        extend_t = cfg.extend_final_time
+        fresh_verbose = cfg.verbose
+        if extend_t is not None and not reload_base:
+            raise ValueError(
+                "extend_final_time is a resume directive: set reload too "
+                "(a cold start takes its schedule from final_time/n_plot)"
+            )
+        if reload_base:
+            state, aux, cfg, metadata, yields, converter = load_run(
+                reload_base, cfg.n_checkpoint, data_dir=data_dir, device=device
+            )
+            # -v is a property of the INVOCATION, not the stored run
+            cfg = cfg.replace(verbose=fresh_verbose)
+            if extend_t is not None:
+                cfg = _extend(cfg, extend_t, float(state.time),
+                              int(state.step_count), [metadata])
+            # the stored run's mesh; every rank has read the files before
+            # rank 0 truncates them
+            mesh = _run_mesh(cfg, state.cluster.n, device)
+            _barrier(mesh)
+            # continue writing at the PATH the user pointed at, not at
+            # metadata.filename (which records only the original base NAME)
+            base = reload_base
+            if lead:
+                _bound_resumed_yields(yields, base, cfg, float(state.time))
+                # a -nc K resume rewrites checkpoints K+1... — drop the
+                # abandoned timeline's higher-numbered state files now
+                _drop_stale_state_files(base, metadata.most_recent_checkpoint)
+                if cfg.orbax_dir:
+                    # same for the DCP tree, or its latest_step resumes the
+                    # abandoned timeline
+                    from ..io.orbax_backend import drop_steps_above
 
-                drop_steps_above(cfg.orbax_dir, int(state.step_count))
-    else:
-        mesh = _run_mesh(cfg, cfg.n + int(cfg.interloper), device)
-        # a backend the mesh (or its absence) refuses, before any file
-        from .step import _check_backend
+                    drop_steps_above(cfg.orbax_dir, int(state.step_count))
+        else:
+            mesh = _run_mesh(cfg, cfg.n + int(cfg.interloper), device)
+            # a backend the mesh (or its absence) refuses, before any file
+            from .step import _check_backend
 
-        _check_backend(mesh, cfg.force_impl)
-        state, aux, cfg = init_cluster(cfg, data_dir, device=device)
-        metadata = _metadata_from_cfg(cfg)
-        base = metadata.filename
-        host, t0 = _host_copy(state)
-        converter = Converter(cfg.rc, float(host["mass"].sum()))
-        yields = Yields(base, bounded=bool(getattr(cfg, "yields_frames",
-                                                   False)))
-        # initial checkpoint #0 (al26_nbody.py:1741-1745)
-        if lead:
-            _save(base, metadata, converter, yields, host, t0, cfg,
-                  increment=False, verbose=cfg.verbose)
-    if mesh is not None:
-        from ..parallel.sharded import shard_state_rows
+            _check_backend(mesh, cfg.force_impl)
+            state, aux, cfg = init_cluster(cfg, data_dir, device=device)
+            metadata = _metadata_from_cfg(cfg)
+            base = metadata.filename
+            host, t0 = _host_copy(state)
+            converter = Converter(cfg.rc, float(host["mass"].sum()))
+            yields = Yields(base, bounded=bool(getattr(cfg, "yields_frames",
+                                                       False)))
+            # initial checkpoint #0 (al26_nbody.py:1741-1745)
+            if lead:
+                _save(base, metadata, converter, yields, host, t0, cfg,
+                      increment=False, verbose=cfg.verbose)
+        if mesh is not None:
+            from ..parallel.sharded import shard_state_rows
 
-        state = shard_state_rows(state, mesh)
+            state = shard_state_rows(state, mesh)
 
     n_done = int(state.step_count)
     n_steps = cfg.n_steps
@@ -394,7 +406,6 @@ def run(cfg: SimConfig, progress: bool = True,
             pass
 
     timers = PhaseTimers()
-    maybe_start_trace()
     write_traj = cfg.interloper and cfg.interloper_trajectory
     if write_traj and lead:
         # cold run: clear a previous run's rows in this cwd; resume: drop
@@ -495,6 +506,7 @@ def run(cfg: SimConfig, progress: bool = True,
                     state = advance_steps(state, chunk)
                 k += chunk
             if bar is not None:
+                count("host_reads.driver.progress")
                 bar.n = round(float(state.time), 6)
                 bar.refresh()
 
@@ -515,7 +527,8 @@ def run(cfg: SimConfig, progress: bool = True,
                 pass
     if bar is not None:
         bar.close()
-    maybe_stop_trace()
+    if started:
+        maybe_stop_trace()
     if cfg.verbose and lead:
         print("phase timings:")
         print(timers.report())

@@ -58,6 +58,7 @@ from ..ops.nbody import (
 )
 from ..state import CH_AGB, CH_GLOBAL, CH_LOCAL, CH_SNE, SimState
 from ..units import G_INTERNAL
+from ..utils.timing import span, spanned
 from .init import SimAux
 
 def _check_backend(mesh, force_impl: str) -> None:
@@ -402,16 +403,17 @@ def _step_impl(state: SimState, aux: SimAux, cfg: SimConfig,
             a, j, pot = sweep_close(p, v)
             return a, (j if needs_jerk else None), pot
 
-    out = advance(
-        c.pos, c.vel, c.mass, dt,
-        integrator=integ, eta=cfg.eta_hermite,
-        n_sub=cfg.leapfrog_n_sub or 16,
-        eps2=eps2, max_substeps=cfg.substeps_max, force_fn=force_fn,
-        acc_fn=acc_fn, k_fast=cfg.k_fast or 0,
-        force_rows_fn=force_rows_fn, init_eval=init_eval,
-        final_eval_fn=final_eval_fn, k_ultra=cfg.k_ultra,
-        force_rows_at_factory=rows_at_factory,
-    )
+    with span("step.advance"):
+        out = advance(
+            c.pos, c.vel, c.mass, dt,
+            integrator=integ, eta=cfg.eta_hermite,
+            n_sub=cfg.leapfrog_n_sub or 16,
+            eps2=eps2, max_substeps=cfg.substeps_max, force_fn=force_fn,
+            acc_fn=acc_fn, k_fast=cfg.k_fast or 0,
+            force_rows_fn=force_rows_fn, init_eval=init_eval,
+            final_eval_fn=final_eval_fn, k_ultra=cfg.k_ultra,
+            force_rows_at_factory=rows_at_factory,
+        )
     if cache_ok:
         pos, vel, (a1, j1, pot1) = out
     else:
@@ -446,10 +448,12 @@ def fresh_cache(state: SimState, cfg: SimConfig, integ: str, mesh=None,
     )
 
 
+@spanned("step.physics")
 def physics_after_advance(state: SimState, aux: SimAux, cfg: SimConfig,
                           pos_old, pos, vel, r_vir) -> SimState:
     """Steps 3-8 of the physics (everything after the N-body advance):
-    stellar evolution, wind/SN/AGB deposition, decay, condensation."""
+    stellar evolution, wind/SN/AGB deposition, decay, condensation; the
+    span "step.physics", with one child span a stage."""
     c = state.cluster
     dtype, device = c.pos.dtype, c.pos.device
     t = state.time
@@ -458,84 +462,92 @@ def physics_after_advance(state: SimState, aux: SimAux, cfg: SimConfig,
     lm_mask = c.low_mass_mask(cfg.low_mass_min, cfg.low_mass_max)
 
     # -- 3. stellar evolution (the precomputed f64 phase table) -------------
-    mass_new, mdot_new = stellar.evolve_from_table(
-        aux.stellar_tbl, c.m0, t_new
-    )
-    # the table is f64: cast the result back to the state dtype
-    mass_new = mass_new.to(dtype)
-    mdot_new = mdot_new.to(dtype)
-    # the interloper's mass is pinned (its track is the AGB table)
-    mass_new = torch.where(c.is_interloper, c.mass, mass_new)
-    mdot_new = torch.where(c.is_interloper, 0.0, mdot_new)
-
-    # wind/SN source validity: INITIAL-mass based by default;
-    # sn_parity_mode restores the reference's step-start current-mass gate
-    hm_valid = aux.hm_slot_valid
-    if cfg.sn_parity_mode:
-        hm_valid = hm_valid & (
-            c.mass[aux.hm_idx] >= cfg.high_mass_threshold
+    with span("step.stellar"):
+        mass_new, mdot_new = stellar.evolve_from_table(
+            aux.stellar_tbl, c.m0, t_new
         )
+        # the table is f64: cast the result back to the state dtype
+        mass_new = mass_new.to(dtype)
+        mdot_new = mdot_new.to(dtype)
+        # the interloper's mass is pinned (its track is the AGB table)
+        mass_new = torch.where(c.is_interloper, c.mass, mass_new)
+        mdot_new = torch.where(c.is_interloper, 0.0, mdot_new)
+
+        # wind/SN source validity: INITIAL-mass based by default;
+        # sn_parity_mode restores the reference's step-start current-mass
+        # gate
+        hm_valid = aux.hm_slot_valid
+        if cfg.sn_parity_mode:
+            hm_valid = hm_valid & (
+                c.mass[aux.hm_idx] >= cfg.high_mass_threshold
+            )
 
     # -- 4. wind deposition (both isotopes, both mixing models) -------------
-    slr = c.slr.clone()
-    wind_global = dep.wind_deposition(
-        pos, vel, c.r_disk, lm_mask, aux.hm_idx, hm_valid,
-        mdot_new, c.wind_ratio, r_vir, dt, local=False,
-    )
-    wind_local = dep.wind_deposition(
-        pos, vel, c.r_disk, lm_mask, aux.hm_idx, hm_valid,
-        mdot_new, c.wind_ratio,
-        torch.as_tensor(cfg.r_bub_local_wind, dtype=dtype, device=device),
-        dt, local=True,
-    )
-    slr[:, :, CH_GLOBAL] += wind_global
-    slr[:, :, CH_LOCAL] += wind_local
+    with span("step.winds"):
+        slr = c.slr.clone()
+        wind_global = dep.wind_deposition(
+            pos, vel, c.r_disk, lm_mask, aux.hm_idx, hm_valid,
+            mdot_new, c.wind_ratio, r_vir, dt, local=False,
+        )
+        wind_local = dep.wind_deposition(
+            pos, vel, c.r_disk, lm_mask, aux.hm_idx, hm_valid,
+            mdot_new, c.wind_ratio,
+            torch.as_tensor(cfg.r_bub_local_wind, dtype=dtype, device=device),
+            dt, local=True,
+        )
+        slr[:, :, CH_GLOBAL] += wind_global
+        slr[:, :, CH_LOCAL] += wind_local
 
     # -- 5. supernovae ---------------------------------------------------
-    injected, kicked = dep.sn_injection(
-        pos, c.r_disk, lm_mask, aux.hm_idx, hm_valid,
-        mdot_new, c.kicked, c.sn_yield,
-    )
-    slr[:, :, CH_SNE] += injected
-    if cfg.natal_kicks:
-        # one-shot remnant kick at the SN, applied at step end. Padded
-        # slots repeat an index with valid=False and must accumulate
-        # (add zero), hence index_add.
-        newly = kicked[aux.hm_idx] & ~c.kicked[aux.hm_idx] & aux.hm_slot_valid
-        vel = vel.index_add(0, aux.hm_idx.long(),
-                            aux.kick_vel.to(vel.dtype) * newly[:, None])
+    with span("step.supernovae"):
+        injected, kicked = dep.sn_injection(
+            pos, c.r_disk, lm_mask, aux.hm_idx, hm_valid,
+            mdot_new, c.kicked, c.sn_yield,
+        )
+        slr[:, :, CH_SNE] += injected
+        if cfg.natal_kicks:
+            # one-shot remnant kick at the SN, applied at step end. Padded
+            # slots repeat an index with valid=False and must accumulate
+            # (add zero), hence index_add.
+            newly = (kicked[aux.hm_idx] & ~c.kicked[aux.hm_idx]
+                     & aux.hm_slot_valid)
+            vel = vel.index_add(0, aux.hm_idx.long(),
+                                aux.kick_vel.to(vel.dtype) * newly[:, None])
 
     # -- 6. interloper ----------------------------------------------------
     agb_raw = c.agb_raw
     if cfg.interloper:
-        # the AGB clock uses the PRE-advance time (al26_nbody.py:984)
-        t_int = t - torch.as_tensor(cfg.interloper_offset_time, dtype=dtype,
-                                    device=device)
-        r_al, r_fe = _agb_rates(aux, t_int)
-        active = t_int > 0.0
-        agb_abs = dep.interloper_deposition(
-            pos_old, pos, c.r_disk, lm_mask,
-            interloper_index=-1,
-            rate_26al=r_al * active, rate_60fe=r_fe * active,
-            proximity_radius=0.1,  # pc, al26_nbody.py:1013
-            bubble_radius=torch.as_tensor(cfg.interloper_bubble_radius,
-                                          dtype=dtype, device=device),
-            dt=dt,
-        )
-        slr[:, :, CH_AGB] += agb_abs
-        agb_raw = agb_raw + agb_abs
+        with span("step.agb"):
+            # the AGB clock uses the PRE-advance time (al26_nbody.py:984)
+            t_int = t - torch.as_tensor(cfg.interloper_offset_time,
+                                        dtype=dtype, device=device)
+            r_al, r_fe = _agb_rates(aux, t_int)
+            active = t_int > 0.0
+            agb_abs = dep.interloper_deposition(
+                pos_old, pos, c.r_disk, lm_mask,
+                interloper_index=-1,
+                rate_26al=r_al * active, rate_60fe=r_fe * active,
+                proximity_radius=0.1,  # pc, al26_nbody.py:1013
+                bubble_radius=torch.as_tensor(cfg.interloper_bubble_radius,
+                                              dtype=dtype, device=device),
+                dt=dt,
+            )
+            slr[:, :, CH_AGB] += agb_abs
+            agb_raw = agb_raw + agb_abs
 
     # -- 7. decay ---------------------------------------------------------
-    slr = dep.apply_decay(
-        slr, dt, cfg.half_life_26al, cfg.half_life_60fe,
-        decay_agb=cfg.interloper,
-    )
+    with span("step.decay"):
+        slr = dep.apply_decay(
+            slr, dt, cfg.half_life_26al, cfg.half_life_60fe,
+            decay_agb=cfg.interloper,
+        )
 
     # -- 8. condensation ----------------------------------------------
-    slr_final, disk_alive = dep.condense(
-        slr, c.slr_final, cfg.interloper, c.tau_disk, c.disk_alive,
-        lm_mask, t_new,
-    )
+    with span("step.condensation"):
+        slr_final, disk_alive = dep.condense(
+            slr, c.slr_final, cfg.interloper, c.tau_disk, c.disk_alive,
+            lm_mask, t_new,
+        )
 
     cluster = c.replace(
         pos=pos, vel=vel, mass=mass_new, mdot=mdot_new, kicked=kicked,
@@ -642,17 +654,19 @@ def _stride_impl(state: SimState, aux: SimAux, cfg: SimConfig, cache,
             c.mass, cfg.eps2, "pallas" if rows_kernel else "default")
         rows_at_factory = _build_rows_at_factory(c.mass, cfg.eps2,
                                                  rows_kernel)
-    pos_c, vel_c, (a1, j1, pot1), (pos_s, vel_s) = advance(
-        c.pos, c.vel, c.mass, m * dt,
-        integrator="hermite4_block", eta=cfg.eta_hermite,
-        # the advance spans m*dt: scale the substep budget so the minimum
-        # substep floor (h_min = span/max_substeps) stays dt/substeps_max
-        eps2=eps2, max_substeps=cfg.substeps_max * m,
-        force_fn=None, k_fast=cfg.k_fast or 0,
-        force_rows_fn=force_rows_fn, init_eval=(a0, j0),
-        final_eval_fn=final_eval_fn, interior_samples=m - 1,
-        k_ultra=cfg.k_ultra, force_rows_at_factory=rows_at_factory,
-    )
+    with span("step.advance"):
+        pos_c, vel_c, (a1, j1, pot1), (pos_s, vel_s) = advance(
+            c.pos, c.vel, c.mass, m * dt,
+            integrator="hermite4_block", eta=cfg.eta_hermite,
+            # the advance spans m*dt: scale the substep budget so the
+            # minimum substep floor (h_min = span/max_substeps) stays
+            # dt/substeps_max
+            eps2=eps2, max_substeps=cfg.substeps_max * m,
+            force_fn=None, k_fast=cfg.k_fast or 0,
+            force_rows_fn=force_rows_fn, init_eval=(a0, j0),
+            final_eval_fn=final_eval_fn, interior_samples=m - 1,
+            k_ultra=cfg.k_ultra, force_rows_at_factory=rows_at_factory,
+        )
 
     s = state
     pos_prev = c.pos
