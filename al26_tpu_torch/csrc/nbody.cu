@@ -27,6 +27,10 @@
 //                  Its FMA body is kernel 2 (fma_sweep, KIND_PRED), its
 //                  `body_mxu` kernel 2c (pair_sweep_mma<..., PRED>).
 //
+// Beside them, at the end of this file, the two kernels of the
+// hermite4_block fast-group substep around kernel 2c (substep_predict,
+// substep_correct; ops/cuda_substep.py), which replace no Pallas kernel.
+//
 // One loop for every FMA body: kernels 1, 1b and 2 here and kernel 3 (the
 // tree's near field, csrc/tree.cu) sweep through pair_fma.cuh. One target
 // row per thread; source columns staged as packed float4 (x, y, z, m) and
@@ -211,6 +215,7 @@
 //     without the jerk.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <climits>
 
@@ -1132,6 +1137,290 @@ int mma_dispatch(int with_jerk, int pot_mode, int pred, const MmaArgs& a,
 #undef AL26_MMA
 }
 
+// ---------------------------------------------------------------------------
+// the hermite4_block fast-group substep around kernel 2c
+// ---------------------------------------------------------------------------
+//
+// These two kernels replace no Pallas kernel: the JAX package runs the
+// two-tier predicted-columns substep (al26_tpu/ops/integrators.py,
+// hermite4_block_advance) as jnp inside lax.while_loop, where XLA fuses it.
+// Run eagerly, the same substep is ~110 small torch launches beside kernel
+// 2c, and the host's time to issue them, not the device, sets the
+// substep's pace. These kernels exist to take those launches down to two:
+//   substep_predict  one block: h = eta sqrt(min_i |a_i|^2 / max(|j_i|^2,
+//                    1e-30)) over the K fast rows (a block-wide min),
+//                    clamped to [h_min, dt - tau]; th = tau + h, the f32
+//                    offset kernel 2c reads from device memory; the fast
+//                    rows' predictor over h, (pfp, vfp), kernel 2c's rows;
+//                    and the fast columns' step-start prediction to th,
+//                    (pf_pred, vf_pred);
+//   (kernel 2c, launched by the caller through cuda_nbody.PredcolsMma)
+//   substep_correct  blocks of SUB_ROWS rows: the exact fast-column
+//                    override (integrators._fast_override_delta: two K x K
+//                    pair sums, self pair masked, against (pfp, vfp) and
+//                    against (pf_pred, vf_pred), g (a_s - a_p) and
+//                    g (j_s - j_p)) added to 2c's (a1, j1); the Hermite
+//                    corrector; the fast rows' state updated in place;
+//                    tau = th and the flag th < dt that the loop's one host
+//                    read takes.
+// What bounds them: launch latency. 2 K^2 pairs at K = 512 are ~24 MFLOP,
+// ~0.4 us of the card's FP32 rate, and the rows' state is ~50 KB. So the
+// correct kernel spreads a row's K columns over SUB_LANES lanes (K = 512:
+// 64 blocks of 128 threads, 32 columns a lane and state) with the columns
+// staged once a block in shared memory, and the step size needs one block.
+//
+// Arithmetic: the state's f32, products in full precision (no TF32, no fast
+// math). The step size, the predictors and the corrector round each
+// product and sum apart (__fmul_rn, __fadd_rn), in the torch loop's order,
+// with torch's a * (1 / c) for a division by a constant. The delta's column
+// sums are split over the lanes and reduced by shuffles in a fixed order,
+// so they differ from torch's einsum only in rounding order, and a repeat
+// gives the same bits. 1 / r is rsqrtf, as torch.rsqrt. A NaN criterion
+// propagates into h and tau as torch.min, maximum and minimum propagate it,
+// so a poisoned force ends the loop as the torch loop ends.
+
+constexpr int SUB_PRED_THREADS = 1024;   // substep_predict: at most, one block
+constexpr int SUB_ROWS = 8;              // substep_correct: rows a block
+constexpr int SUB_LANES = 16;            // column lanes a row
+constexpr int SUB_TILE = 512;            // fast columns staged a tile
+
+// [4, K, 3] fast-row arrays: p, v, a, j (state) or pfp, vfp, pf_pred,
+// vf_pred (the substep's predictions)
+struct SubArgs {
+    const float* s0;        // the step-start fast rows
+    float* s;               // the subcycled fast rows, updated in place
+    float* w;               // the substep's predictions
+    float* sc;              // tau, h, th, flag
+    const float* dt;
+    const float* h_min;
+    const float* eps2_ptr;  // eps2 from device memory, or null: `eps2`
+    const float* mass;      // [K] the fast rows' masses
+    const float* a1;        // [K, 3] kernel 2c's acc and jerk
+    const float* j1;
+    float eta, eps2, g;
+    int k;
+};
+
+// NaN-propagating min and max, as torch.min / minimum / maximum / clamp
+__device__ __forceinline__ float nan_min(float a, float b)
+{
+    return (a != a || a < b) ? a : b;
+}
+
+__device__ __forceinline__ float nan_max(float a, float b)
+{
+    return (a != a || a > b) ? a : b;
+}
+
+__device__ __forceinline__ float3 ld3(const float* x, int q, int k, int i)
+{
+    const float* p = x + ((size_t)q * k + i) * 3;
+    return make_float3(p[0], p[1], p[2]);
+}
+
+__device__ __forceinline__ void st3(float* x, int q, int k, int i, float3 v)
+{
+    float* p = x + ((size_t)q * k + i) * 3;
+    p[0] = v.x;
+    p[1] = v.y;
+    p[2] = v.z;
+}
+
+// a + c b and a - b, each product and sum rounded apart
+__device__ __forceinline__ float3 add_mul(float3 a, float c, float3 b)
+{
+    return make_float3(__fadd_rn(a.x, __fmul_rn(c, b.x)),
+                       __fadd_rn(a.y, __fmul_rn(c, b.y)),
+                       __fadd_rn(a.z, __fmul_rn(c, b.z)));
+}
+
+__device__ __forceinline__ float3 sub3(float3 a, float3 b)
+{
+    return make_float3(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y),
+                       __fsub_rn(a.z, b.z));
+}
+
+__device__ __forceinline__ float3 add3(float3 a, float3 b)
+{
+    return make_float3(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                       __fadd_rn(a.z, b.z));
+}
+
+// |x|^2 as torch.sum(x * x, dim=-1) adds it on an H100: (x^2 + z^2) + y^2
+__device__ __forceinline__ float norm2(float3 x)
+{
+    return __fadd_rn(__fadd_rn(__fmul_rn(x.x, x.x), __fmul_rn(x.z, x.z)),
+                     __fmul_rn(x.y, x.y));
+}
+
+// Hermite predictor over t: (p + t v + (t^2 / 2) a + (t^3 / 6) j,
+// v + t a + (t^2 / 2) j), in the torch loop's order
+__device__ __forceinline__ void predict(float3 p, float3 v, float3 a,
+                                        float3 j, float t, float3& pp,
+                                        float3& vp)
+{
+    const float t2 = __fmul_rn(t, t);
+    const float c2 = __fmul_rn(0.5f, t2);
+    const float c3 = __fmul_rn(__fmul_rn(t2, t), 1.0f / 6.0f);
+    pp = add_mul(add_mul(add_mul(p, t, v), c2, a), c3, j);
+    vp = add_mul(add_mul(v, t, a), c2, j);
+}
+
+__global__ void __launch_bounds__(SUB_PRED_THREADS)
+substep_predict(SubArgs a)
+{
+    __shared__ float red[SUB_PRED_THREADS / 32];
+    __shared__ float h_shared;
+    const int k = a.k;
+    float m = CUDART_INF_F;
+    for (int i = threadIdx.x; i < k; i += blockDim.x) {
+        const float a2 = norm2(ld3(a.s, 2, k, i));
+        const float j2 = norm2(ld3(a.s, 3, k, i));
+        m = nan_min(m, __fdiv_rn(a2, nan_max(j2, 1e-30f)));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        m = nan_min(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+    __syncthreads();
+    const float tau = a.sc[0];
+    if (threadIdx.x == 0) {
+        for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
+            m = nan_min(m, red[w]);
+        float h = __fmul_rn(a.eta, __fsqrt_rn(m));
+        h = nan_min(nan_max(h, *a.h_min), __fsub_rn(*a.dt, tau));
+        h_shared = h;
+        a.sc[1] = h;
+        a.sc[2] = __fadd_rn(tau, h);
+    }
+    __syncthreads();
+    const float h = h_shared;
+    const float th = __fadd_rn(tau, h);
+    for (int i = threadIdx.x; i < k; i += blockDim.x) {
+        float3 pp, vp;
+        predict(ld3(a.s, 0, k, i), ld3(a.s, 1, k, i), ld3(a.s, 2, k, i),
+                ld3(a.s, 3, k, i), h, pp, vp);
+        st3(a.w, 0, k, i, pp);
+        st3(a.w, 1, k, i, vp);
+        predict(ld3(a.s0, 0, k, i), ld3(a.s0, 1, k, i), ld3(a.s0, 2, k, i),
+                ld3(a.s0, 3, k, i), th, pp, vp);
+        st3(a.w, 2, k, i, pp);
+        st3(a.w, 3, k, i, vp);
+    }
+}
+
+// one masked pair of the override's sums: acc += w dx, wdv += w dv,
+// wsdx += w s dx with w = m / r^3, s = 3 (dx.dv) / r^2
+__device__ __forceinline__ void override_pair(
+    float px, float py, float pz, float vx, float vy, float vz, float m,
+    float3 pr, float3 vr, float eps2, bool self, float3& acc, float3& wdv,
+    float3& wsdx)
+{
+    const float dx = px - pr.x, dy = py - pr.y, dz = pz - pr.z;
+    const float ux = vx - vr.x, uy = vy - vr.y, uz = vz - vr.z;
+    const float r2 = dx * dx + dy * dy + dz * dz + eps2;
+    const float inv_r = self ? 0.f : rsqrtf(r2);
+    const float inv_r2 = inv_r * inv_r;
+    const float w = m * (inv_r * inv_r2);
+    const float ws = w * (3.f * (dx * ux + dy * uy + dz * uz) * inv_r2);
+    acc.x += w * dx;
+    acc.y += w * dy;
+    acc.z += w * dz;
+    wdv.x += w * ux;
+    wdv.y += w * uy;
+    wdv.z += w * uz;
+    wsdx.x += ws * dx;
+    wsdx.y += ws * dy;
+    wsdx.z += ws * dz;
+}
+
+__device__ __forceinline__ float lane_sum(float v)
+{
+#pragma unroll
+    for (int off = SUB_LANES / 2; off > 0; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+    return v;
+}
+
+__device__ __forceinline__ float3 lane_sum3(float3 v)
+{
+    return make_float3(lane_sum(v.x), lane_sum(v.y), lane_sum(v.z));
+}
+
+__global__ void __launch_bounds__(SUB_ROWS * SUB_LANES)
+substep_correct(SubArgs a)
+{
+    // the tile's columns: (pfp, vfp, pf_pred, vf_pred) x (x, y, z), mass
+    __shared__ float col[13][SUB_TILE];
+    const int k = a.k;
+    const int lane = threadIdx.x % SUB_LANES;
+    const int i = blockIdx.x * SUB_ROWS + threadIdx.x / SUB_LANES;
+    const int row = i < k ? i : k - 1;   // rows past K: sums, no writes
+    const float3 pr = ld3(a.w, 0, k, row), vr = ld3(a.w, 1, k, row);
+    const float eps2 = a.eps2_ptr != nullptr ? *a.eps2_ptr : a.eps2;
+    const float3 z = make_float3(0.f, 0.f, 0.f);
+    float3 acc_s = z, wdv_s = z, wsdx_s = z;
+    float3 acc_p = z, wdv_p = z, wsdx_p = z;
+    for (int c0 = 0; c0 < k; c0 += SUB_TILE) {
+        const int nc = min(SUB_TILE, k - c0);
+        __syncthreads();
+        for (int e = threadIdx.x; e < nc; e += blockDim.x) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const float3 v = ld3(a.w, q, k, c0 + e);
+                col[3 * q][e] = v.x;
+                col[3 * q + 1][e] = v.y;
+                col[3 * q + 2][e] = v.z;
+            }
+            col[12][e] = a.mass[c0 + e];
+        }
+        __syncthreads();
+        for (int e = lane; e < nc; e += SUB_LANES) {
+            const bool self = c0 + e == row;
+            const float m = col[12][e];
+            override_pair(col[0][e], col[1][e], col[2][e], col[3][e],
+                          col[4][e], col[5][e], m, pr, vr, eps2, self, acc_s,
+                          wdv_s, wsdx_s);
+            override_pair(col[6][e], col[7][e], col[8][e], col[9][e],
+                          col[10][e], col[11][e], m, pr, vr, eps2, self,
+                          acc_p, wdv_p, wsdx_p);
+        }
+    }
+    acc_s = lane_sum3(acc_s);
+    wdv_s = lane_sum3(wdv_s);
+    wsdx_s = lane_sum3(wsdx_s);
+    acc_p = lane_sum3(acc_p);
+    wdv_p = lane_sum3(wdv_p);
+    wsdx_p = lane_sum3(wsdx_p);
+    const float h = a.sc[1];
+    if (lane == 0 && i < k) {
+        // delta = g (a_s - a_p), g (j_s - j_p), j = wdv - wsdx
+        const float3 da = sub3(acc_s, acc_p);
+        const float3 dj = sub3(sub3(wdv_s, wsdx_s), sub3(wdv_p, wsdx_p));
+        const float3 a1 = add_mul(ld3(a.a1, 0, k, i), a.g, da);
+        const float3 j1 = add_mul(ld3(a.j1, 0, k, i), a.g, dj);
+        const float3 pf = ld3(a.s, 0, k, i), vf = ld3(a.s, 1, k, i);
+        const float3 af = ld3(a.s, 2, k, i), jf = ld3(a.s, 3, k, i);
+        // vf1 = vf + (h / 2) (af + a1) + (h^2 / 12) (jf - j1)
+        // pf1 = pf + (h / 2) (vf + vf1) + (h^2 / 12) (af - a1)
+        const float hh = __fmul_rn(0.5f, h);
+        const float c12 = __fmul_rn(__fmul_rn(h, h), 1.0f / 12.0f);
+        const float3 vf1 = add_mul(add_mul(vf, hh, add3(af, a1)), c12,
+                                   sub3(jf, j1));
+        const float3 pf1 = add_mul(add_mul(pf, hh, add3(vf, vf1)), c12,
+                                   sub3(af, a1));
+        st3(a.s, 0, k, i, pf1);
+        st3(a.s, 1, k, i, vf1);
+        st3(a.s, 2, k, i, a1);
+        st3(a.s, 3, k, i, j1);
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+        const float th = a.sc[2];
+        a.sc[0] = th;
+        a.sc[3] = th < *a.dt ? 1.f : 0.f;
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1236,6 +1525,59 @@ int nbody_mma_blocks_per_sm(int with_jerk, int pot_mode, int pred,
     const MmaArgs a{};
     return mma_dispatch(with_jerk, pot_mode, pred, a, dim3(1), nullptr,
                         blocks);
+}
+
+// The substep's step size and predictions (substep_predict): reads the
+// fast rows' state s and step-start rows s0 ([4, K, 3] each), tau = sc[0],
+// *dt, *h_min; writes sc[1] = h, sc[2] = th and w = (pfp, vfp, pf_pred,
+// vf_pred). One launch; returns its cudaGetLastError().
+int substep_predict_launch(const float* s0, float* s, float* w,
+                           float* sc, const float* dt, const float* h_min,
+                           float eta, int k, void* stream)
+{
+    SubArgs a{};
+    a.s0 = s0;
+    a.s = s;
+    a.w = w;
+    a.sc = sc;
+    a.dt = dt;
+    a.h_min = h_min;
+    a.eta = eta;
+    a.k = k;
+    const int warps = (k + 31) / 32;
+    const int threads = warps < SUB_PRED_THREADS / 32 ? warps * 32
+                                                      : SUB_PRED_THREADS;
+    substep_predict<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The override delta, the corrector and the flag (substep_correct): reads
+// w, mass [K], kernel 2c's a1 and j1 ([K, 3]), h = sc[1], th = sc[2], *dt
+// and eps2 (*eps2_ptr, or the value where eps2_ptr is null); updates s in
+// place, writes sc[0] = th and sc[3] = (th < dt). One launch; returns its
+// cudaGetLastError().
+int substep_correct_launch(float* w, float* s, float* sc,
+                           const float* mass, const float* a1,
+                           const float* j1, const float* dt,
+                           const float* eps2_ptr, float eps2, float g, int k,
+                           void* stream)
+{
+    SubArgs a{};
+    a.s = s;
+    a.w = w;
+    a.sc = sc;
+    a.dt = dt;
+    a.eps2_ptr = eps2_ptr;
+    a.mass = mass;
+    a.a1 = a1;
+    a.j1 = j1;
+    a.eps2 = eps2;
+    a.g = g;
+    a.k = k;
+    const dim3 grid((k + SUB_ROWS - 1) / SUB_ROWS);
+    substep_correct<<<grid, SUB_ROWS * SUB_LANES, 0,
+                      static_cast<cudaStream_t>(stream)>>>(a);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -76,7 +76,10 @@ from ..utils.timing import spanned
 from . import cuda_build
 
 LAUNCHES = {"nbody_rows": 0, "nbody_rows_group": 0, "nbody_predcols": 0,
-            "nbody_rows_mma": 0, "nbody_predcols_mma": 0}
+            "nbody_rows_mma": 0, "nbody_predcols_mma": 0,
+            # the fused hermite4_block substep around kernel 2c
+            # (ops.cuda_substep)
+            "substep_predict": 0, "substep_correct": 0}
 
 # must match TB / TJ in csrc/nbody.cu: rows per block, columns per tile
 _TB = 128
@@ -175,6 +178,17 @@ def load():
     lib.nbody_predcols_mma_launch.restype = i
     lib.nbody_mma_blocks_per_sm.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.nbody_mma_blocks_per_sm.restype = i
+    lib.substep_predict_launch.argtypes = [
+        p, p, p, p,           # s0, s, w, sc
+        p, p, f, i, p,        # dt, h_min, eta, k, stream
+    ]
+    lib.substep_predict_launch.restype = i
+    lib.substep_correct_launch.argtypes = [
+        p, p, p,              # w, s, sc
+        p, p, p,              # mass, a1, j1
+        p, p, f, f, i, p,     # dt, eps2_ptr, eps2, g, k, stream
+    ]
+    lib.substep_correct_launch.restype = i
     _lib = lib
     return lib
 

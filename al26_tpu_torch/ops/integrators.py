@@ -16,6 +16,11 @@ per substep: one device synchronisation per substep. Each iteration of a
 substep loop is the span "integrator.substep" and one count of
 `integrator.substeps`; each read-back is the span "integrator.host_read"
 and one count of `host_reads.integrator` (utils.timing).
+
+On a CUDA f32 state the two-tier predicted-columns subcycle runs each
+substep as two hand-written kernels around kernel 2c (ops.cuda_substep),
+one more count of `integrator.fused_substeps` each; the torch loop beside
+it is their plain version and runs everywhere else.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 
 from ..units import G_INTERNAL
 from ..utils.timing import count, span
+from . import cuda_substep
 from .nbody import acc_jerk_pot, acc_pot_dense
 
 _TINY = 1e-30
@@ -249,7 +255,9 @@ def hermite4_block_advance(
     torch row block. `force_rows_at_factory(pos, vel, a0, j0) -> rows_at`
     (two-tier only) gives the predicted-columns subcycle: one kernel
     launch per substep with the columns predicted in-kernel, plus the
-    exact fast-column override (_fast_override_delta).
+    exact fast-column override (_fast_override_delta); on a CUDA f32
+    state the rest of each substep is two fused kernels
+    (ops.cuda_substep).
 
     `final_eval_fn(pos, vel) -> (acc, jerk, pot)`: the closing full
     evaluation goes through it (at the PREDICTED end state, P(EC)) and a
@@ -377,6 +385,27 @@ def hermite4_block_advance(
                 tau, pu, vu, au, ju = tau_new, pu1, vu1, au1, ju1
         pf = torch.cat([pu, pm], dim=0)   # fast_idx order
         vf = torch.cat([vu, vm], dim=0)
+    elif rows_at is not None and cuda_substep.engages(pf0):
+        # the same substep in two hand-written kernels around kernel 2c
+        # (ops.cuda_substep): predict, 2c, correct; the torch loop below
+        # is its plain version
+        sub = cuda_substep.FusedSubstep(pf0, vf0, af0, jf0, mass_f, dt,
+                                        h_min, eta, eps2, g)
+        ids = fast_idx.to(torch.int32)
+        more = tau < dt
+        while _host_bool(more):               # one host read per substep
+            with _substep():
+                count("integrator.fused_substeps")
+                sub.predict()
+                if m_s:
+                    p_at, v_at, crossed = capture(sub.tau, sub.th, sub.pf,
+                                                  sub.vf, sub.af, sub.jf,
+                                                  sub.tau)
+                    samp_pf = torch.where(crossed, p_at, samp_pf)
+                    samp_vf = torch.where(crossed, v_at, samp_vf)
+                a1, j1 = rows_at(sub.pfp, sub.vfp, ids, sub.th)
+                more = sub.correct(a1, j1)
+        pf, vf = sub.pf, sub.vf
     else:
         pf, vf, af, jf = pf0, vf0, af0, jf0
         while _host_bool(tau < dt):           # one host read per substep

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --nccl # phases 1, 2, 5 at N = 32768, 5c at
                                  # 64 x 1000 and 7p (needs >= 2 cards for
                                  # the NCCL ranks), nothing else
+    python3 chip_smoke.py --substep  # phases 1, 2 and 3s, nothing else
 
 Phases, one result line each (any failure exits non-zero):
 
@@ -34,6 +35,16 @@ Phases, one result line each (any failure exits non-zero):
               back-to-back launches of the bare launchers, one launch a
               call) beside the matmul bodies' at the same shapes, the
               bounds, and the f32 plain versions' times;
+  3s. substep the fused hermite4_block substep (ops.cuda_substep: kernels
+              substep_predict and substep_correct around 2c) at K = 256,
+              N = 32768 and K = 512, N = 102400 (Plummer, f32): one fused
+              substep against the torch loop's (tests/torch_substep_ref.py)
+              from the same state after three fused substeps, at the bars
+              of tests/test_torch_kernels.py; the two kernels' device time
+              a substep by the profiler (50 substeps), beside 2c's and the
+              bound (2 K^2 pairs with the jerk, the rows' bytes); the
+              torch substep's device time (its kernels' sum) and kernels a
+              substep; the host time of a fused and of a torch substep;
   4. parity   the slice at n = 2048, f32, force_impl="pallas",
               hermite4_block, k_fast = 64, 3 steps: the port on the card
               against the port on the CPU (plain versions), same initial
@@ -234,12 +245,13 @@ and the ensemble meshes), after 6c:
               bits, held against phases 5 and 5c; with one card a line
               says the mesh phases ran a world of one.
 
-The run order: 1, 2, 3, 3d, 3b, 3c, 4, 4d, 4b, 4c, 5, 5s, 5b, 5t, 5c, 6,
-6b, 6d, 6c, 6e, 6g, 7m, 7n, 7p.
+The run order: 1, 2, 3, 3d, 3s, 3b, 3c, 4, 4d, 4b, 4c, 5, 5s, 5b, 5t, 5c,
+6, 6b, 6d, 6c, 6e, 6g, 7m, 7n, 7p.
 
 Then one JSON line with every kernel's launches (kernels 1-3 from phase 5b,
 the windowed kernel from the 64 x 1000 run of phase 5c, the matmul kernels
-from phase 6b), error (the largest of its comparisons), times (device-only
+from phase 6b, the fused substep's from phases 5 and 6b), error (the
+largest of its comparisons), times (device-only
 `ms`; kernels 1-3 at the tree slice's shapes, kernels 1 and 2 with the
 matmul body's `mma_ms` there; the matmul bodies also the wrapper's
 `host_ms`), and the least time
@@ -973,6 +985,123 @@ def phase_kernel_mma():
                    for b in ("bound_ms", "bound_by", "bound_pipe")},
                 "library_ms": None}
     return [rec_rows, rec_pred]
+
+
+def _substep_state(n: int, k: int):
+    """A Plummer cluster of n stars on the card (f32), its step-start fast
+    group of k rows as hermite4_block_advance selects it and kernel 2c's
+    rows_at: (cfg, idx, (pf0, vf0, af0, jf0), mass_f, rows_at)."""
+    import torch
+
+    from al26_tpu_torch import SimConfig
+    from al26_tpu_torch.ops import cuda_nbody as cn
+    from al26_tpu_torch.sim import init_cluster
+
+    cfg = SimConfig(n=n, rc=1.0, seed=42, dtype="f32", k_fast=k)
+    state, _, cfg = init_cluster(cfg, device=torch.device("cuda"))
+    c = state.cluster
+    a0, j0, _ = cn.kernel_acc_jerk_pot(c.pos, c.vel, c.mass, cfg.eps2)
+    crit = torch.sqrt(torch.sum(a0 * a0, -1)
+                      / torch.clamp(torch.sum(j0 * j0, -1), min=1e-30))
+    idx = torch.topk(crit, k, largest=False, sorted=True).indices
+    cols0 = tuple(t[idx] for t in (c.pos, c.vel, a0, j0))
+    rows_at = cn.make_pred_force_rows(c.pos, c.vel, a0, j0, c.mass, cfg.eps2)
+    return cfg, idx, cols0, c.mass[idx], rows_at
+
+
+def phase_substep() -> dict:
+    """Phase 3s (module docstring). Returns the kernels-line record of the
+    fused substep (launches filled from phases 5 and 6b)."""
+    import torch
+
+    from al26_tpu_torch.ops import cuda_substep
+    from al26_tpu_torch.units import G_INTERNAL
+
+    ref = _load_file("tests/torch_substep_ref.py")
+    dev, f32 = torch.device("cuda"), torch.float32
+    shapes = []
+    for n, k in ((N_KERNEL, 256), (102400, 512)):
+        cfg, idx, cols0, mass_f, rows_at = _substep_state(n, k)
+        ids = idx.to(torch.int32)
+        eps2 = torch.tensor(cfg.eps2, dtype=f32, device=dev)
+        h_min = torch.tensor(cfg.dt, dtype=f32, device=dev) / cfg.substeps_max
+        # dt far ahead, so that the timed substeps never reach it
+        for dt_steps in (1, 1000):
+            dt = torch.tensor(dt_steps * cfg.dt, dtype=f32, device=dev)
+            sub = cuda_substep.FusedSubstep(*cols0, mass_f, dt, h_min,
+                                            cfg.eta_hermite, eps2,
+                                            G_INTERNAL)
+
+            def fused():
+                sub.predict()
+                a1, j1 = rows_at(sub.pfp, sub.vfp, ids, sub.th)
+                return a1, sub.correct(a1, j1)
+
+            for _ in range(3):
+                fused()
+            state = tuple(t.clone() for t in (sub.pf, sub.vf, sub.af,
+                                              sub.jf))
+            tau = sub.tau.clone()
+
+            def plain():
+                return ref.torch_substep(state, tau, cols0, mass_f, ids,
+                                         rows_at, dt, h_min, cfg.eta_hermite,
+                                         eps2, G_INTERNAL)
+
+            if dt_steps == 1:
+                # one substep each way from the same state
+                h, th, new, (da, dj), flag = plain()
+                a1, flag_f = fused()
+                torch.cuda.synchronize()
+                err = {
+                    "h": abs(float(sub.h) - float(h)) / float(h),
+                    "tau": abs(float(sub.tau) - float(th)) / float(th),
+                    "flag_equal": bool(flag_f) == bool(flag),
+                    "delta_acc": float((sub.af - a1 - da).abs().max()
+                                       / new[2].abs().max()),
+                    "jerk": float((sub.jf - new[3]).abs().max()
+                                  / new[3].abs().max()),
+                    "pf1": float((sub.pf - new[0]).abs().max()
+                                 / new[0].abs().max()),
+                    "vf1": float((sub.vf - new[1]).abs().max()
+                                 / new[1].abs().max())}
+                ok = (err["h"] <= 1e-6 and err["tau"] <= 1e-6
+                      and err["flag_equal"] and err["delta_acc"] <= 2e-5
+                      and err["jerk"] <= 2e-5 and err["pf1"] <= 1e-6
+                      and err["vf1"] <= 1e-6)
+                if not ok:
+                    _line("substep", n=n, k=k, errors=err)
+                    _fail(f"the fused substep at K = {k}, N = {n} is off "
+                          f"the torch substep: {err}")
+                continue
+            kernels = _kernel_ms(fused)
+            own = {name: v for name, v in kernels.items()
+                   if name in ("substep_predict", "substep_correct")}
+            if set(own) != {"substep_predict", "substep_correct"}:
+                _fail(f"the profiler shows no fused kernel: {kernels}")
+            plain_kernels = _kernel_ms(plain)
+            # rows: s0, s, w read or written in each kernel, 2c's a1, j1
+            # and the masses read, the state written (316 bytes a row)
+            rec = {"n": n, "k": k, "errors": err,
+                   "ms": sum(v["ms"] for v in own.values()),
+                   "kernels": kernels,
+                   **_bound(2 * k * (k - 1), True, 316 * k),
+                   "plain_ms": sum(v["ms"] for v in plain_kernels.values()),
+                   "plain_kernels_per_substep": sum(
+                       v["per_call"] for v in plain_kernels.values()),
+                   "host_ms": _host_ms(fused),
+                   "plain_host_ms": _host_ms(plain)}
+            _line("substep", **rec)
+            shapes.append(rec)
+    torch.cuda.synchronize()
+    worst = max(max(r["errors"][e] for e in ("delta_acc", "jerk", "pf1",
+                                             "vf1"))
+                for r in shapes)
+    last = shapes[-1]
+    return {"name": "substep", "max_rel_err": worst,
+            **{key: last[key] for key in ("ms", "bound_ms", "bound_by",
+                                          "bound_pipe", "plain_ms")},
+            "library_ms": None, "k": last["k"], "n": last["n"]}
 
 
 def phase_parity():
@@ -3227,12 +3356,16 @@ def main() -> int:
         phase_kernel_mma()
         phase_tree_pred_mma()
         return 0
+    if sys.argv[1:] == ["--substep"]:
+        phase_substep()
+        return 0
     if sys.argv[1:] == ["--nccl"]:
         run5 = phase_slice(N_KERNEL, "hermite4_block")
         phase_mesh_nccl(run5, phase_ensemble_slice(*ENSEMBLES[0]))
         return 0
     records = phase_kernels()
     mma = phase_kernel_mma()
+    substep = phase_substep()
     records.append(phase_near_field())
     group = phase_group_kernel()
     phase_parity()
@@ -3282,6 +3415,14 @@ def main() -> int:
             rec["max_abs_err"] = max(rec["max_abs_err"],
                                      checked[rec["name"]]["max_abs_err"])
     records.extend(mma)
+    # the fused substep: its launches in phase 5's N_KERNEL run and in
+    # phase 6b's run through sim.driver, one of each kernel a substep
+    substep["launches"] = {
+        phase: {key: launches[key]
+                for key in ("substep_predict", "substep_correct")}
+        for phase, launches in (("5", run5["launches"]),
+                                ("6b", drv["launches"]))}
+    records.append(substep)
     # under a mesh (7m's virtual ranks, 7n's world of one): the worst error
     # of each kernel's local bodies, and its launches on the mesh paths
     for rec in records:

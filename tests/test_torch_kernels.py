@@ -16,6 +16,7 @@ JAX the card test runs alone (tests/conftest.py imports JAX, hence
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m gpu
 """
+import functools
 import gc
 import os
 from types import SimpleNamespace
@@ -195,6 +196,212 @@ def test_predcols_plus_override_matches_pallas(jx):
     assert _rel(a2 + da2, np.asarray(a1 + da1)) < 2e-5
     assert _rel(j2 + dj2, np.asarray(j1 + dj1)) < 2e-5
     assert _rel(da2, da1) < 2e-5
+
+
+@functools.lru_cache(maxsize=None)
+def _plummer(n, k):
+    """A Plummer cluster of n stars from init_cluster on the card (f32)
+    and its config with k_fast = k."""
+    from al26_tpu_torch import SimConfig
+    from al26_tpu_torch.sim import init_cluster
+
+    cfg = SimConfig(n=n, rc=1.0, seed=42, dtype="f32", k_fast=k)
+    state, _, cfg = init_cluster(cfg, device=torch.device("cuda"))
+    c = state.cluster
+    return c.pos, c.vel, c.mass, cfg
+
+
+def _fast_group(pos, vel, mass, cfg, k):
+    """The step-start fast group as hermite4_block_advance selects it
+    (kernel 1c's forces): (idx, the rows (pf0, vf0, af0, jf0), a0, j0)."""
+    a0, j0, _ = cn.kernel_acc_jerk_pot(pos, vel, mass, cfg.eps2)
+    crit = torch.sqrt(torch.sum(a0 * a0, -1)
+                      / torch.clamp(torch.sum(j0 * j0, -1), min=1e-30))
+    idx = torch.topk(crit, k, largest=False, sorted=True).indices
+    return idx, tuple(t[idx] for t in (pos, vel, a0, j0)), a0, j0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(256, 32768), (512, 102400)])
+def test_fused_substep_matches_torch_substep_on_card(k, n):
+    """One substep of the fused kernels (ops.cuda_substep) against the
+    torch loop's (tests/torch_substep_ref.py) from the same state: the
+    fast rows of a Plummer cluster after three fused substeps, f32, kernel
+    2c between. Bars: h and tau to 1e-6 relative (the torch loop's rounding
+    order from the same state, which gives its bits on an H100); the flag
+    exactly; the override delta to 2e-5 of the total force's max (the
+    predicted-columns bar: the K-column sums are taken in another order);
+    (pf1, vf1) to 1e-6 of their max (a few f32 ulps: only a1 differs, by
+    the delta's rounding)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from al26_tpu_torch.ops import cuda_substep
+    from torch_substep_ref import torch_substep
+
+    pos, vel, mass, cfg = _plummer(n, k)
+    dev, f32 = pos.device, torch.float32
+    dt = torch.tensor(cfg.dt, dtype=f32, device=dev)
+    eps2 = torch.tensor(cfg.eps2, dtype=f32, device=dev)
+    h_min = dt / cfg.substeps_max
+    idx, cols0, a0, j0 = _fast_group(pos, vel, mass, cfg, k)
+    ids, mass_f = idx.to(torch.int32), mass[idx]
+    rows_at = cn.make_pred_force_rows(pos, vel, a0, j0, mass, cfg.eps2)
+    sub = cuda_substep.FusedSubstep(*cols0, mass_f, dt, h_min,
+                                    cfg.eta_hermite, eps2, G_INTERNAL)
+
+    def fused_substep():
+        sub.predict()
+        a1, j1 = rows_at(sub.pfp, sub.vfp, ids, sub.th)
+        return a1, sub.correct(a1, j1).clone()
+
+    before = dict(cn.LAUNCHES)
+    for _ in range(3):
+        fused_substep()
+    state = tuple(t.clone() for t in (sub.pf, sub.vf, sub.af, sub.jf))
+    tau = sub.tau.clone()
+    h, th, new, (da, dj), flag = torch_substep(
+        state, tau, cols0, mass_f, ids, rows_at, dt, h_min, cfg.eta_hermite,
+        eps2, G_INTERNAL)
+    a1, flag_f = fused_substep()
+    torch.cuda.synchronize()
+    assert float(tau) > 0 and bool(flag)
+    # four fused substeps; 2c once more for the torch substep
+    launched = {key: cn.LAUNCHES[key] - before[key] for key in before}
+    assert launched["substep_predict"] == launched["substep_correct"] == 4
+    assert launched["nbody_predcols_mma"] == 5
+    assert abs(float(sub.h) - float(h)) <= 1e-6 * float(h)
+    assert abs(float(sub.tau) - float(th)) <= 1e-6 * float(th)
+    assert bool(flag_f) == bool(flag)
+    delta = sub.af - a1
+    assert float((delta - da).abs().max()) <= 2e-5 * float(
+        new[2].abs().max())
+    assert float((sub.jf - new[3]).abs().max()) <= 2e-5 * float(
+        new[3].abs().max())
+    for got, want in ((sub.pf, new[0]), (sub.vf, new[1])):
+        assert float((got - want).abs().max()) <= 1e-6 * float(
+            want.abs().max())
+
+
+def _gap(got, ref, start) -> float:
+    """rms over stars of |got - ref| over the rms of |ref - start| (ref
+    the f64 run: its change over the run)."""
+    d = (got.double() - ref).norm(dim=-1)
+    s = (ref - start.double()).norm(dim=-1)
+    return float(d.pow(2).mean().sqrt() / s.pow(2).mean().sqrt())
+
+
+def _block_run(pos, vel, mass, cfg, k, steps, m=1):
+    """`steps` hermite4_block advances of m dt each (m > 1 with the
+    gravity stride's m - 1 interior samples), as sim.step's cached runner
+    makes them: the closing sweep reused as the next opening one, eps2 a
+    device scalar. f32: kernel 1c and the predicted-columns factory (the
+    fused substep wherever it engages); f64: the plain torch sweeps and
+    row blocks. Returns (pos, vel, samples, substeps of each advance,
+    fused substeps, launches)."""
+    from al26_tpu_torch.ops import integrators as ti
+    from al26_tpu_torch.ops import nbody
+    from al26_tpu_torch.utils import timing
+
+    dev, dtype = pos.device, pos.dtype
+    dt = torch.tensor(m * cfg.dt, dtype=dtype, device=dev)
+    eps2 = torch.tensor(cfg.eps2, dtype=dtype, device=dev)
+    factory = rows = None
+    if dtype is torch.float32:
+        def sweep(p, v):
+            return cn.kernel_acc_jerk_pot(p, v, mass, cfg.eps2)
+
+        def factory(p, v, a0, j0):
+            return cn.make_pred_force_rows(p, v, a0, j0, mass, cfg.eps2)
+
+        rows = cn.make_pallas_force_rows(mass, cfg.eps2)
+    else:
+        def sweep(p, v):
+            return nbody.acc_jerk_pot(p, v, mass, cfg.eps2)
+    a, j, _ = sweep(pos, vel)
+    before = dict(cn.LAUNCHES)
+    timing.snapshot_and_reset()
+    subs, fused, samples = [], 0, None
+    for _ in range(steps):
+        out = ti.hermite4_block_advance(
+            pos, vel, mass, dt, k, eta=cfg.eta_hermite, eps2=eps2,
+            max_substeps=cfg.substeps_max * m, force_rows_fn=rows,
+            init_eval=(a, j), final_eval_fn=sweep, interior_samples=m - 1,
+            force_rows_at_factory=factory)
+        pos, vel, (a, j, _) = out[:3]
+        samples = out[3] if m > 1 else None
+        counts = timing.snapshot_and_reset()["counts"]
+        subs.append(counts["integrator.substeps"])
+        fused += counts.get("integrator.fused_substeps", 0)
+    torch.cuda.synchronize()
+    launches = {key: cn.LAUNCHES[key] - v for key, v in before.items()}
+    return pos, vel, samples, subs, fused, launches
+
+
+def _fused_against_torch_and_f64(pos, vel, mass, cfg, k, steps, m,
+                                 monkeypatch):
+    """_block_run fused, then with the fused path switched off (the torch
+    loop on the same f32 kernels), then in f64; the gaps of each f32 run
+    to the f64 one, and the runs."""
+    from al26_tpu_torch.ops import cuda_substep
+
+    runs = {"fused": _block_run(pos, vel, mass, cfg, k, steps, m)}
+    with monkeypatch.context() as mp:
+        mp.setattr(cuda_substep, "engages", lambda pf0: False)
+        runs["torch"] = _block_run(pos, vel, mass, cfg, k, steps, m)
+    ref = _block_run(pos.double(), vel.double(), mass.double(), cfg, k,
+                     steps, m)
+    gaps = {}
+    for name, run in runs.items():
+        gaps[name] = [_gap(run[0], ref[0], pos), _gap(run[1], ref[1], vel)]
+        if m > 1:
+            gaps[name] += [_gap(run[2][0], ref[2][0], pos[None]),
+                           _gap(run[2][1], ref[2][1], vel[None])]
+    fused, plain = runs["fused"], runs["torch"]
+    total = sum(fused[3])
+    assert total > 0
+    assert fused[4] == total
+    assert (fused[5]["substep_predict"] == fused[5]["substep_correct"]
+            == fused[5]["nbody_predcols_mma"] == total)
+    assert plain[4] == 0 and plain[5]["substep_predict"] == 0
+    assert plain[5]["nbody_predcols_mma"] == sum(plain[3])
+    return gaps, fused[3], plain[3]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(256, 32768), (512, 102400)])
+def test_fused_block_steps_hold_to_f64_on_card(k, n, monkeypatch):
+    """Ten hermite4_block steps of a Plummer cluster, fused and torch
+    substeps (both f32, kernels 1c and 2c), each against the torch path in
+    f64 on the card: the fused run's position and velocity gaps at most
+    1.5 times the f32 torch run's. The substep counts are not asserted
+    equal: each step's are at most one apart (rounding can move where the
+    last substep lands). Every fused substep is one count of
+    integrator.fused_substeps, one launch of each fused kernel and one of
+    kernel 2c; the torch run launches no fused kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    pos, vel, mass, cfg = _plummer(n, k)
+    gaps, fs, ts = _fused_against_torch_and_f64(pos, vel, mass, cfg, k, 10,
+                                                1, monkeypatch)
+    assert all(f <= 1.5 * t for f, t in zip(gaps["fused"], gaps["torch"])), \
+        gaps
+    assert all(abs(a - b) <= 1 for a, b in zip(fs, ts)), (fs, ts)
+
+
+@pytest.mark.gpu
+def test_fused_strided_advance_holds_to_f64_on_card(monkeypatch):
+    """The gravity stride's advance (interior_samples = 3 over 4 dt, the
+    crossing capture between the fused kernels), two strides at
+    N = 32768, K = 256, held as the steps above: the final state's and the
+    interior samples' gaps to f64, the counts and the launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    pos, vel, mass, cfg = _plummer(32768, 256)
+    gaps, fs, ts = _fused_against_torch_and_f64(pos, vel, mass, cfg, 256, 2,
+                                                4, monkeypatch)
+    assert all(f <= 1.5 * t for f, t in zip(gaps["fused"], gaps["torch"])), \
+        gaps
+    assert all(abs(a - b) <= 1 for a, b in zip(fs, ts)), (fs, ts)
 
 
 @pytest.mark.parametrize("mode", [
