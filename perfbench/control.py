@@ -22,10 +22,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from perfbench.harness import check, main, spec  # noqa: E402
 from perfbench.harness.traffic import make_cell  # noqa: E402
+from perfbench.reference import forcelaw  # noqa: E402
 
 
 def readings(cell_spec, seed: int, seconds: float, control: bool, device,
              overrides=None) -> dict:
+    forcelaw.resolve(cell_spec.config["sim"])
     cell = make_cell(cell_spec.config, cell_spec.traffic, seed, device,
                      overrides)
     try:

@@ -30,6 +30,7 @@ import tempfile
 import time
 
 from . import guard, spec
+from ..reference import forcelaw
 from .traffic import make_cell
 
 
@@ -125,13 +126,19 @@ def end_to_end(cell_spec, wall: float, myr: float, units: int,
     return out
 
 
-def traced(cell_spec, cell) -> tuple[dict, dict, dict, int]:
+def traced(cell_spec, cell) -> tuple[dict, dict, dict, int, list]:
     """The traced stretch: span units (spans closed by a synchronize),
-    then profiled units with the pair counter. Returns (per-layer metrics,
-    device extras, breakdown, units)."""
+    then profiled units with the pair counter; then, in the same window,
+    the program's own span and profiled stretches (program.stretch: its
+    spans and counters on, every thread profiled). The program's spans
+    time what it does undisturbed by the benchmark's synchronizes, and its
+    profiler ranges cost host time, so its stretches take units of their
+    own after the benchmark's. Returns (per-layer metrics, device extras,
+    breakdown, units, the comparison's samples: those of the benchmark's
+    stretches, as drawn before the program's)."""
     import torch
 
-    from . import tracing
+    from . import program, tracing
 
     tr = cell_spec.traffic
     spans = tracing.Spans(keep_outputs=("driver.run",))
@@ -166,6 +173,8 @@ def traced(cell_spec, cell) -> tuple[dict, dict, dict, int]:
         tr_out = tracing.read_trace(path)
     finally:
         tracing.remove_quietly(path)
+    samples = cell.samples()
+    prog = program.stretch(cell_spec, cell)
     info = card() if torch.cuda.is_available() else {
         "name": "cpu", "sms": 0, "power_limit_w": None,
         "sm_clock_max_hz": None}
@@ -174,7 +183,8 @@ def traced(cell_spec, cell) -> tuple[dict, dict, dict, int]:
     ctx = {"units_spanned": n_span, "units_traced": n_trace,
            "spans": dict(spans.seconds), "outputs": dict(spans.outputs),
            "launches": {k: l1[k] - l0[k] for k in l0},
-           "pair_calls": counter.calls, "trace": tr_out, "card": info}
+           "pair_calls": counter.calls, "trace": tr_out, "card": info,
+           **{k: prog[k] for k in ("program", "program_trace") if k in prog}}
     metrics = {}
     for m in cell_spec.per_layer:
         v = spec.load_metric(m["name"]).read(ctx)
@@ -185,7 +195,7 @@ def traced(cell_spec, cell) -> tuple[dict, dict, dict, int]:
     extras = {"busy_s": tr_out["busy_s"], "window_s": tr_out["window_s"]}
     breakdown = {"device_ops": tr_out["device_ops"],
                  "idle_gaps": tr_out["idle_gaps"]}
-    return metrics, extras, breakdown, n_span + n_trace
+    return metrics, extras, breakdown, 2 * (n_span + n_trace), samples
 
 
 def run_cell(cell_spec, seed: int, seconds: float, trace: int, device,
@@ -197,6 +207,9 @@ def run_cell(cell_spec, seed: int, seconds: float, trace: int, device,
     from . import check
 
     cuda = torch.device(device).type == "cuda"
+    # the reference's force law, in set-up: a configuration whose law has
+    # no module fails here, before any window
+    forcelaw.resolve(cell_spec.config["sim"])
     cell = make_cell(cell_spec.config, cell_spec.traffic, seed, device,
                      overrides)
     try:
@@ -205,9 +218,10 @@ def run_cell(cell_spec, seed: int, seconds: float, trace: int, device,
             torch.cuda.synchronize()
         setup_s = time.perf_counter() - t_start
         log(f"set-up {setup_s:.3f} s")
-        extras, breakdown = {}, None
+        extras, breakdown, samples = {}, None, None
         if trace:
-            metrics, extras, breakdown, units = traced(cell_spec, cell)
+            metrics, extras, breakdown, units, samples = traced(cell_spec,
+                                                                cell)
         else:
             before = host_state() if steps_log else None
             wall, myr, ends = run_window(cell, seconds)
@@ -222,7 +236,8 @@ def run_cell(cell_spec, seed: int, seconds: float, trace: int, device,
                                "host_before": before,
                                "host_after": host_state()}, f)
         peak = torch.cuda.max_memory_allocated() if cuda else 0
-        compared, info, failed = check.compare(cell_spec, cell, device)
+        compared, info, failed = check.compare(cell_spec, cell, device,
+                                               samples=samples)
         for name, v in info.items():
             log(f"read, not compared: {name} {v!r}")
     finally:

@@ -11,7 +11,8 @@ each of its layers, and with its tracing on opens a profiler range
     spans take: "program" ({"span": snapshot, "trace": snapshot} of the
     two stretches), "program_trace" (`read_program_trace`), "trace"
     (tracing.read_trace of the same file), "units_spanned" and
-    "units_traced";
+    "units_traced". perfbench/run.py's traced run (main.traced) runs it
+    after the benchmark's own stretches;
   * `read_program_trace(path)` reduces the "al26::" ranges of a Chrome
     trace written by `profile_window`;
   * `main` (perfbench/trace_program.py) prints those readers' metrics for
@@ -41,7 +42,7 @@ PREFIX = "al26::"
 METRICS = ("substep_host_ms.n100k", "host_wait_ms_per_step.n100k",
            "launches_per_substep.n100k", "physics_launches_per_step.ensemble",
            "init_s_per_run.cli", "save_blocking_s_per_run.cli",
-           "writer_idle_s_per_run.cli")
+           "writer_idle_s_per_run.cli", "fused_substep_share.n100k")
 
 
 def recorder():
@@ -191,7 +192,9 @@ def read_program_trace(path: str) -> dict:
 
 def stretch(cell_spec, cell) -> dict:
     """The span stretch and the profiled stretch of a set-up cell with the
-    program's tracing on: the readers' context (module docstring)."""
+    program's tracing on: the readers' context (module docstring). The
+    caller begins the cell's window: main.traced runs these units after its
+    own stretch, in the same window."""
     import torch
 
     timing = recorder()
@@ -200,7 +203,6 @@ def stretch(cell_spec, cell) -> dict:
     n_trace = int(tr.get("trace_units", 5))
     cuda = torch.cuda.is_available()
     ctx = {"units_spanned": n_span, "units_traced": n_trace}
-    cell.begin_window()
     if timing is not None:
         timing.snapshot_and_reset()
         timing.enable()
@@ -322,6 +324,7 @@ def main(argv=None) -> int:
         log(f"set-up {time.perf_counter() - t0:.3f} s")
         cost = (on_cost(cell_spec, cell, args.cost_seconds, args.cost_turns)
                 if args.cost_seconds > 0 and recorder() is not None else None)
+        cell.begin_window()
         ctx = stretch(cell_spec, cell)
     finally:
         cell.close()

@@ -5,9 +5,11 @@ A cell is an entry of BENCHMARK.json's `workloads`. Its configuration is
 `perfbench/configs/<config>.json` (the SimConfig fields under "sim"), its
 traffic mix `perfbench/traffic/<traffic>.json` (the parameters the one
 generator of harness/traffic.py reads), the limits of its comparison
-`perfbench/limits/<cell>.json`, and each per-layer metric a reader
-`perfbench/metrics/<metric>.py`. A later cell or metric is new files and
-new entries; nothing here names one.
+`perfbench/limits/<cell>.json`, each per-layer metric a reader
+`perfbench/metrics/<metric>.py`, and the reference's force law of a
+configuration whose force_impl is not a direct sum a module
+`perfbench/reference/force_<force_impl>.py` (reference/forcelaw.py). A
+later cell or metric is new files and new entries; nothing here names one.
 """
 from __future__ import annotations
 

@@ -1,16 +1,17 @@
 """Spans, counters and the device trace of a traced run (``--trace 1``).
 
 Nothing here runs in a ``--trace 0`` window. The spans and counters wrap
-calls into the program from the benchmark's side (the program has none of
-its own there yet):
+calls into the program from the benchmark's side (the program's own spans
+and counters are read by harness/program.py):
 
   * `Spans.wrap(module, attr, name)` replaces a function of the program by
     one that records its host wall time under `name` (with a
     `torch.cuda.synchronize()` before and after) while the spans are
     recording, and opens a profiler range "perfbench::<name>" so device
     ops launched inside carry the span's name;
-  * `PairCounter` records every kernel-wrapper call of ops.cuda_nbody with
-    its rows, columns and jerk, the pairs the roofline counts;
+  * `PairCounter` records every gravity kernel-wrapper call (ops.cuda_nbody,
+    and the near field of ops.cuda_tree) with the pairs the roofline
+    counts, its jerk and its bytes;
   * `profile_window` runs a stretch of work under torch.profiler and
     `read_trace` reduces its Chrome trace: device busy seconds in the
     window, device time by readable op name, and the idle gaps by what the
@@ -72,22 +73,38 @@ class Spans:
 
 
 class PairCounter:
-    """Calls of the direct-sum kernel wrappers, each as (pairs, with_jerk,
-    bytes): kernel 1 and 1b (`nbody_rows`: rows x the group size, or x N)
-    and kernel 2 (`nbody_predcols`, `PredcolsMma.__call__`: rows x N)."""
+    """Calls of the gravity kernel wrappers, each as (pairs, with_jerk,
+    bytes): kernel 1 and 1b (`nbody_rows`: rows x the group size, or x N),
+    kernel 2 (`nbody_predcols`, `PredcolsMma.__call__`: rows x N), and the
+    tree's near field (ops.cuda_tree: the work items that `near_items`
+    builds for the kernel path and the plain path alike, counted by
+    roofline.near_interactions, with the jerk flag of the near-field call
+    that asked for them). The near field's items are counted when `calls`
+    is read, so the traced stretch holds no read-back of its own."""
 
     def __init__(self):
-        self.calls = []
+        self._calls = []        # tuples, and near-field calls to count
+
+    @property
+    def calls(self) -> list:
+        self._calls = [c if isinstance(c, tuple) else c()
+                       for c in self._calls]
+        return self._calls
 
     @contextmanager
     def installed(self):
         from al26_tpu_torch.ops import cuda_nbody as cn
+        from al26_tpu_torch.ops import cuda_tree as ct
 
-        from .roofline import predcols_bytes, rows_bytes
+        from .roofline import (near_bytes, near_interactions,
+                               predcols_bytes, rows_bytes)
 
         rows_sig = inspect.signature(cn.nbody_rows)
         rows_fn, pred_fn = cn.nbody_rows, cn.nbody_predcols
         call_fn = cn.PredcolsMma.__call__
+        items_fn = ct.near_items
+        near_fns = (ct.near_field_plain, ct.near_field_launcher)
+        jerk = []               # the near-field calls under way
 
         def rows(*a, **k):
             b = rows_sig.bind(*a, **k)
@@ -95,30 +112,57 @@ class PairCounter:
             v = b.arguments
             nrow, ncol = v["pos_rows"].shape[0], v["pos"].shape[0]
             gs = max(int(v["group_size"]), 0)
-            self.calls.append((nrow * (gs if gs else ncol),
-                               bool(v["with_jerk"]),
-                               rows_bytes(nrow, ncol, bool(v["with_jerk"]),
-                                          bool(v["with_pot"]))))
+            self._calls.append((nrow * (gs if gs else ncol),
+                                bool(v["with_jerk"]),
+                                rows_bytes(nrow, ncol, bool(v["with_jerk"]),
+                                           bool(v["with_pot"]))))
             return rows_fn(*a, **k)
 
         def pred(pos_rows, vel_rows, row_ids, pos0, *a, **k):
             nrow, ncol = pos_rows.shape[0], pos0.shape[0]
-            self.calls.append((nrow * ncol, True, predcols_bytes(nrow, ncol)))
+            self._calls.append((nrow * ncol, True,
+                                predcols_bytes(nrow, ncol)))
             return pred_fn(pos_rows, vel_rows, row_ids, pos0, *a, **k)
 
         def call(plan, pos_rows, *a, **k):
             nrow = pos_rows.shape[0]
-            self.calls.append((nrow * plan.n, True,
-                               predcols_bytes(nrow, plan.n)))
+            self._calls.append((nrow * plan.n, True,
+                                predcols_bytes(nrow, plan.n)))
             return call_fn(plan, pos_rows, *a, **k)
+
+        def items(p2p, kavg, n_true, leaf, *a, **k):
+            it = items_fn(p2p, kavg, n_true, leaf, *a, **k)
+            if jerk:
+                n, lf, j = int(n_true), int(leaf), jerk[-1]
+
+                def counted():
+                    inter, listed = near_interactions(it.item, it.src, n, lf)
+                    return inter, j, near_bytes(n, j, listed)
+
+                self._calls.append(counted)
+            return it
+
+        def near(fn):
+            @functools.wraps(fn)
+            def call_near(*a, with_jerk=False, **k):
+                jerk.append(bool(with_jerk))
+                try:
+                    return fn(*a, with_jerk=with_jerk, **k)
+                finally:
+                    jerk.pop()
+            return call_near
 
         cn.nbody_rows, cn.nbody_predcols = rows, pred
         cn.PredcolsMma.__call__ = call
+        ct.near_items = items
+        ct.near_field_plain, ct.near_field_launcher = map(near, near_fns)
         try:
             yield self
         finally:
             cn.nbody_rows, cn.nbody_predcols = rows_fn, pred_fn
             cn.PredcolsMma.__call__ = call_fn
+            ct.near_items = items_fn
+            ct.near_field_plain, ct.near_field_launcher = near_fns
 
 
 def profile_window(work, trace_path: str) -> None:

@@ -9,26 +9,26 @@
                   Hermite prediction; the others take one Hermite step over
                   dt, closed by a full evaluation at the predicted end.
 
-Each evaluation is a fresh call of gravity.forces; nothing is carried
-between outer steps.
+Each evaluation is a fresh call of the configuration's force law (`law`,
+forcelaw.resolve): its full sweep, and for hermite4_block's subcycle its
+sweep of rows against the predicted columns; nothing is carried between
+outer steps.
 """
 from __future__ import annotations
 
 import torch
-
-from . import gravity
 
 
 def _crit2(a, j):
     return (a * a).sum(-1) / (j * j).sum(-1).clamp_min(1e-30)
 
 
-def leapfrog(pos, vel, mass, dt: float, eps2: float, n_sub: int):
+def leapfrog(law, pos, vel, mass, dt: float, eps2: float, n_sub: int):
     h = dt / n_sub
     zeros = torch.zeros_like(pos)
 
     def acc(p):
-        return gravity.full(p, zeros, mass, eps2, with_jerk=False)[0]
+        return law.full(p, zeros, mass, eps2, with_jerk=False)[0]
 
     a = acc(pos)
     for _ in range(n_sub):
@@ -51,10 +51,10 @@ def _hermite_pc(p, v, a, j, h, force):
     return p1, v1, a1, j1
 
 
-def hermite4(pos, vel, mass, dt: float, eps2: float, eta: float,
+def hermite4(law, pos, vel, mass, dt: float, eps2: float, eta: float,
              substeps_max: int):
     def force(p, v):
-        a, j, _ = gravity.full(p, v, mass, eps2)
+        a, j, _ = law.full(p, v, mass, eps2)
         return a, j
 
     a, j = force(pos, vel)
@@ -68,9 +68,9 @@ def hermite4(pos, vel, mass, dt: float, eps2: float, eta: float,
     return pos, vel
 
 
-def hermite4_block(pos, vel, mass, dt: float, eps2: float, eta: float,
-                   substeps_max: int, k_fast: int):
-    a0, j0, _ = gravity.full(pos, vel, mass, eps2)
+def hermite4_block(law, pos, vel, mass, dt: float, eps2: float,
+                   eta: float, substeps_max: int, k_fast: int):
+    a0, j0, _ = law.full(pos, vel, mass, eps2)
     fast = torch.topk(_crit2(a0, j0), k_fast, largest=False).indices
 
     def predict(tau):
@@ -89,7 +89,7 @@ def hermite4_block(pos, vel, mass, dt: float, eps2: float, eta: float,
         def force(pp, vp):
             pc = p_cols.index_copy(0, fast, pp)
             vc = v_cols.index_copy(0, fast, vp)
-            a, j, _ = gravity.forces(pp, vp, fast, pc, vc, mass, eps2)
+            a, j, _ = law.forces(pp, vp, fast, pc, vc, mass, eps2)
             return a, j
 
         pf, vf, af, jf = _hermite_pc(pf, vf, af, jf, h, force)
@@ -97,7 +97,7 @@ def hermite4_block(pos, vel, mass, dt: float, eps2: float, eta: float,
     p_end, v_end = predict(dt)
     p_end = p_end.index_copy(0, fast, pf)
     v_end = v_end.index_copy(0, fast, vf)
-    a1, j1, _ = gravity.full(p_end, v_end, mass, eps2)
+    a1, j1, _ = law.full(p_end, v_end, mass, eps2)
     dt2 = dt * dt
     vel_c = vel + 0.5 * dt * (a0 + a1) + (dt2 / 12.0) * (j0 - j1)
     pos_c = pos + 0.5 * dt * (vel + vel_c) + (dt2 / 12.0) * (a0 - a1)

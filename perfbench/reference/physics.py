@@ -27,7 +27,7 @@ import math
 import numpy as np
 import torch
 
-from . import gravity, integrators, stellar
+from . import forcelaw, gravity, integrators, stellar
 
 LN2 = 0.693147
 # decisions the reference leaves to the program where its own input lies
@@ -48,7 +48,8 @@ def resolve(sim: dict, n: int, m_total: float, ensemble: bool) -> dict:
     leapfrog for a flattened ensemble (n_sub: dt over 1/64 of the N-body
     time of the realizations' mean initial mass, rounded up to a power of
     two), hermite4 up to 8192 stars, hermite4_block above (k_fast
-    max(256, min(512, n // 128)))."""
+    max(256, min(512, n // 128))); "law" is the configuration's force law
+    (forcelaw.resolve: FileNotFoundError where it has no module)."""
     dt = sim["final_time"] / (sim["n_plot"] * sim["steps_per_plot"])
     rc = sim["rc"]
     integ = sim.get("integrator", "auto")
@@ -60,7 +61,8 @@ def resolve(sim: dict, n: int, m_total: float, ensemble: bool) -> dict:
     n_sub = sim.get("leapfrog_n_sub") or int(
         2 ** math.ceil(math.log2(max(raw, 1.0))))
     soft = sim.get("softening")
-    return {"integrator": integ, "dt": dt, "n_sub": n_sub,
+    return {"integrator": integ, "law": forcelaw.resolve(sim),
+            "dt": dt, "n_sub": n_sub,
             "eps2": 0.125 * rc * rc if soft is None else soft * soft,
             "eta": sim.get("eta_hermite", 0.14),
             "substeps_max": sim.get("substeps_max", 4096),
@@ -75,7 +77,7 @@ def resolve(sim: dict, n: int, m_total: float, ensemble: bool) -> dict:
 def advance(c: dict, rp: dict):
     """(pos, vel) after dt."""
     integ = rp["integrator"]
-    args = (c["pos"], c["vel"], c["mass"], rp["dt"], rp["eps2"])
+    args = (rp["law"], c["pos"], c["vel"], c["mass"], rp["dt"], rp["eps2"])
     if integ == "leapfrog":
         return integrators.leapfrog(*args, rp["n_sub"])
     if integ == "hermite4":
@@ -156,7 +158,7 @@ def after_advance(c: dict, rp: dict, step_count: int, pos, vel, r_vir):
 
 def step(c: dict, rp: dict, step_count: int):
     """One whole reference step: (pos, vel, physics dict)."""
-    r_vir = gravity.virial_radius(c["pos"], c["mass"])
+    r_vir = rp["law"].virial_radius(c["pos"], c["mass"])
     pos, vel = advance(c, rp)
     return pos, vel, after_advance(c, rp, step_count, pos, vel, r_vir)
 

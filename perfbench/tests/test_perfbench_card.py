@@ -5,7 +5,7 @@ traffic (a 5-s window), and the program passes them all. Run with
 import pytest
 
 from perfbench import control
-from perfbench.harness import spec
+from perfbench.tests import cells
 
 CELLS = ("n1k-ensemble64", "n100k-block", "n1k-cli")
 
@@ -22,7 +22,7 @@ def card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", CELLS)
 def test_control_fails_and_program_passes(card, name):
-    cs = spec.load_cell(name)
+    cs = cells.load(name)
     r = control.readings(cs, 2**31 + 4242, 5.0, True, card)
     lim = cs.limits
     assert all(r["program"][k] <= v for k, v in lim.items()), r

@@ -9,7 +9,8 @@ import time
 import pytest
 import torch
 
-from perfbench.harness import main, spec
+from perfbench.harness import main
+from perfbench.tests import cells
 
 SIZES = {
     "n1k-ensemble64": ({"n": 64}, {"realizations": 4, "warmup_steps": 2}),
@@ -21,7 +22,7 @@ SECONDS = {"n1k-ensemble64": 1.0, "n100k-block": 1.0, "n1k-cli": 0.1}
 
 def _run(name):
     ov, tov = SIZES[name]
-    cs = spec.load_cell(name)
+    cs = cells.load(name)
     cs.traffic.update(tov)
     return main.run_cell(cs, 2**31 + 99, SECONDS[name], 0, "cpu",
                          time.perf_counter(), overrides=ov)

@@ -1,13 +1,15 @@
 """The program's spans in a traced stretch (harness/program.py): the
-reduction of its "al26::" ranges in a Chrome trace, the seven readers on
-hand-built contexts and on the context of the current harness (which
-holds none of the program's spans), and each cell's tiny CPU stretch."""
+reduction of its "al26::" ranges in a Chrome trace, the eight readers on
+hand-built contexts and on a context that holds none of the program's
+spans, each cell's tiny CPU stretch, and the benchmark's traced run
+(main.run_cell with --trace 1) reading them."""
 import json
 import time
 
 import pytest
 
 from perfbench.harness import program, spec
+from perfbench.tests import cells
 
 
 def _x(name, cat, ts, dur, tid=1, **args):
@@ -86,6 +88,8 @@ def _ctx(tmp_path):
         "driver.checkpoint": (204, 3.0, {"driver.save.device_wait": 1.0,
                                          "driver.save.host_copy": 0.5}),
     })
+    span["counts"] = {"integrator.substeps": 40,
+                      "integrator.fused_substeps": 30}
     trace = _snap({}, {"integrator.substeps": 2})
     return {"units_spanned": 2, "units_traced": 4,
             "program": {"span": span, "trace": trace},
@@ -100,6 +104,7 @@ def _ctx(tmp_path):
     ("init_s_per_run.cli", 1.5 / 2),
     ("save_blocking_s_per_run.cli", 2.0 / 2),
     ("writer_idle_s_per_run.cli", 20e-6 / 4),
+    ("fused_substep_share.n100k", 100.0 * 30 / 40),
 ])
 def test_readers(tmp_path, name, value):
     mod = spec.load_metric(name)
@@ -116,9 +121,9 @@ def test_readers(tmp_path, name, value):
 @pytest.mark.parametrize("name", program.METRICS)
 def test_readers_agree_with_the_benchmark(name):
     """Each reader names a layer and an end-to-end metric its cells
-    report, ready for its BENCHMARK.json entry."""
+    report, ready for its BENCHMARK.json entry or its parked cell's."""
     mod = spec.load_metric(name)
-    e2e = {e["name"]: e for e in spec.load_benchmark()["end_to_end"]}
+    e2e = {e["name"]: e for e in cells.bench()["end_to_end"]}
     assert mod.MOVES in e2e and mod.WORKLOADS
     for w in mod.WORKLOADS:
         assert w in e2e[mod.MOVES].get("workloads", [w])
@@ -133,7 +138,8 @@ SIZES = {
 SPAN_METRICS = {
     "n1k-ensemble64": {"physics_launches_per_step.ensemble"},
     "n100k-block": {"substep_host_ms.n100k", "host_wait_ms_per_step.n100k",
-                    "launches_per_substep.n100k"},
+                    "launches_per_substep.n100k",
+                    "fused_substep_share.n100k"},
     "n1k-cli": {"init_s_per_run.cli", "save_blocking_s_per_run.cli",
                 "writer_idle_s_per_run.cli"},
 }
@@ -142,11 +148,12 @@ SPAN_METRICS = {
 @pytest.mark.parametrize("name", sorted(SIZES))
 def test_cell_stretch_on_cpu(name):
     """A tiny CPU stretch of each cell yields its readers' metrics; the
-    device-trace ones read 0 launches here (no device ops)."""
+    device-trace ones read 0 launches here (no device ops), and the fused
+    substep's share 0 (the CPU runs the torch loop)."""
     from perfbench.harness.traffic import make_cell
 
     ov, tov = SIZES[name]
-    cs = spec.load_cell(name)
+    cs = cells.load(name)
     cs.traffic.update(tov)
     cell = make_cell(cs.config, cs.traffic, 2**31 + 99, "cpu", ov)
     try:
@@ -157,11 +164,57 @@ def test_cell_stretch_on_cpu(name):
     got = program.read_metrics(ctx, name)
     assert set(got) == SPAN_METRICS[name]
     for k, v in got.items():
-        assert v["value"] >= 0 and (v["value"] > 0
-                                    or "launches" in k), (k, v)
+        assert v["value"] >= 0 and (v["value"] > 0 or "launches" in k
+                                    or k == "fused_substep_share.n100k"), \
+            (k, v)
     assert program.recorder().enabled() is False
     assert ctx["program_trace"]["ranges"]["step.physics"] > 0
     assert 0 <= program.idle_summary(ctx)["named_share"] <= 1
+
+
+@pytest.mark.parametrize("name", sorted(SIZES))
+def test_traced_run_reads_the_program(name, monkeypatch):
+    """run_cell with --trace 1 on a tiny CPU cell: after the benchmark's own
+    stretches, the program's span and profiled stretches run in the same
+    window with its recorder on (off again after); every per-layer entry of
+    the cell that reads the program reads a number; the comparison samples
+    the benchmark's stretches alone, and the run is correct."""
+    from perfbench.harness import check, main
+
+    seen, compared = [], []
+    real_stretch, real_compare = program.stretch, check.compare
+
+    def stretch(*a, **k):
+        seen.append(real_stretch(*a, **k))
+        return seen[-1]
+
+    def compare(cs, cell, *a, samples=None, **k):
+        compared.append((cell.samples(), samples))
+        return real_compare(cs, cell, *a, samples=samples, **k)
+
+    monkeypatch.setattr(program, "stretch", stretch)
+    monkeypatch.setattr(check, "compare", compare)
+    ov, tov = SIZES[name]
+    cs = cells.load(name)
+    cs.traffic.update(tov)
+    r = main.run_cell(cs, 2**31 + 5, 0.0, 1, "cpu", time.perf_counter(),
+                      overrides=ov)
+    (ctx,) = seen
+    assert set(ctx["program"]) == {"span", "trace"}
+    assert ctx["program"]["span"]["spans"] and ctx["program_trace"]["ranges"]
+    assert program.recorder().enabled() is False
+    n = int(cs.traffic["span_units"]) + int(cs.traffic["trace_units"])
+    assert r["attempted"] == 2 * n
+    [(everything, drawn)] = compared
+    unit = (lambda x: int(x[1].rsplit("-", 1)[1])) if name == "n1k-cli" \
+        else (lambda x: x[0])
+    assert drawn and all(unit(x) <= n for x in drawn)
+    assert max(map(unit, everything)) == 2 * n
+    names = {m["name"] for m in cs.per_layer} & set(program.METRICS)
+    assert names == SPAN_METRICS[name]
+    for k in names:
+        assert isinstance(r["metrics"][k]["value"], float), k
+    assert r["correct"], r["compared"]
 
 
 @pytest.mark.parametrize("name", ["n100k-block", "n1k-cli"])
@@ -172,7 +225,7 @@ def test_on_cost_turns(name):
     from perfbench.harness.traffic import make_cell
 
     ov, tov = SIZES[name]
-    cs = spec.load_cell(name)
+    cs = cells.load(name)
     cs.traffic.update(tov)
     cell = make_cell(cs.config, cs.traffic, 7, "cpu", ov)
     try:

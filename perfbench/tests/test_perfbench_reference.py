@@ -91,3 +91,39 @@ def test_readers_on_a_program_run(tmp_path, monkeypatch):
     for k, v in init.items():
         np.testing.assert_allclose(np.asarray(cols0[k], np.float64), v,
                                    rtol=1e-6, atol=1e-12 * np.abs(v).max())
+
+
+def test_start_within_rounding_of_the_initial_mass(tmp_path, monkeypatch):
+    """Save 0 of a 1000-star run whose star 415 has m0 = 8.0055 Msun, where
+    the wind rate moves ~1500 times faster than the mass: the program
+    derives its rate from the drawn f64 mass and stores the mass in f32,
+    so the rate at the stored mass is 8e-5 of itself away. That is within
+    rounding of the input and not wrong; the same rate off by 1e-3, and an
+    ordinary value off by 2e-5, are."""
+    from al26_tpu_torch import cli
+
+    monkeypatch.chdir(tmp_path)
+    cli.main(["-n", "1000", "-rc", "1", "-t_f", "0.02", "--dtype", "f32",
+              "--device", "cpu", "-f", "run", "--seed", "3100000006"])
+    cols0, _ = files.read_state(sorted(glob.glob("run-state-*.pkl.zst"))[0])
+    c0 = check._save_cluster(cols0, "cpu")
+    rp = physics.resolve({"final_time": 10.0, "n_plot": 100,
+                          "steps_per_plot": 10, "rc": 1.0}, 1000,
+                         float(c0["m0"].sum()), False)
+
+    def start(cols):
+        g = check.Gaps(("start_wrong", "start_gap"))
+        check._start(cols, c0, rp, g)
+        return g.v
+
+    m0 = np.asarray(cols0["initial_mass"], np.float64)
+    steep = int(np.argmin(np.abs(m0 - 8.0055)))
+    assert abs(m0[steep] - 8.0055) < 1e-4
+    assert start(cols0) == {"start_wrong": 0,
+                            "start_gap": pytest.approx(7.98e-5, rel=1e-2)}
+    heavy = int(np.argmax(m0))
+    for f, i, by in (("mdot", steep, 1e-3), ("mdot", heavy, 2e-5),
+                     ("m_disk_gas", 3, 2e-5)):
+        bad = {k: np.array(v, copy=True) for k, v in cols0.items()}
+        bad[f][i] *= 1 + by
+        assert start(bad)["start_wrong"] == 1, (f, i)

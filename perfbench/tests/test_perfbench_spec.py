@@ -1,5 +1,6 @@
 """BENCHMARK.json, the configurations, traffic mixes, limits and metric
-readers load, and agree with each other."""
+readers load, and agree with each other; so do the parked cells'
+entries."""
 import json
 import os
 import re
@@ -7,8 +8,10 @@ import re
 import pytest
 
 from perfbench.harness import spec
+from perfbench.tests import cells
 
 BENCH = spec.load_benchmark()
+ALL = cells.bench()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
@@ -21,9 +24,9 @@ def test_top_level_keys():
     assert len(json.dumps(BENCH)) < 64 * 1024
 
 
-@pytest.mark.parametrize("w", BENCH["workloads"], ids=lambda w: w["name"])
+@pytest.mark.parametrize("w", ALL["workloads"], ids=lambda w: w["name"])
 def test_cell_files_load(w):
-    cell = spec.load_cell(w["name"], BENCH)
+    cell = spec.load_cell(w["name"], ALL)
     assert NAME.match(cell.name) and cell.chips == 1
     cfg = spec.sim_config(cell.config)
     assert cfg.dtype == "f32"
@@ -34,13 +37,13 @@ def test_cell_files_load(w):
     assert len(w["why"]) <= 200
 
 
-@pytest.mark.parametrize("m", BENCH["per_layer"], ids=lambda m: m["name"])
+@pytest.mark.parametrize("m", ALL["per_layer"], ids=lambda m: m["name"])
 def test_metric_readers_match(m):
     mod = spec.load_metric(m["name"])
     assert (mod.UNIT, mod.LAYER, mod.MOVES, mod.WORKLOADS) == (
         m["unit"], m["layer"], m["moves"], m["workloads"])
     assert NAME.match(m["name"]) and UNIT.match(m["unit"])
-    e2e = {e["name"]: e for e in BENCH["end_to_end"]}
+    e2e = {e["name"]: e for e in ALL["end_to_end"]}
     for w in m["workloads"]:
         assert w in e2e[m["moves"]].get("workloads", [w])
 
@@ -55,3 +58,20 @@ def test_configs_and_metrics_named_once():
         assert os.path.exists(os.path.join(spec.ROOT, c["file"]))
         assert spec.read_json(os.path.join(spec.ROOT, c["file"]))[
             "reduced"] == c["reduced"]
+
+
+@pytest.mark.parametrize("path", cells.PARKED, ids=os.path.basename)
+def test_parked_cells_left_the_benchmark(path):
+    """A parked file holds a cell's own entries, none of them still in
+    BENCHMARK.json, and names no cell of BENCHMARK.json."""
+    parked = spec.read_json(path)
+    assert set(parked) == {"why", "workloads", "end_to_end", "per_layer"}
+    names = {w["name"] for w in parked["workloads"]}
+    assert not names & {w["name"] for w in BENCH["workloads"]}
+    for key in ("end_to_end", "per_layer"):
+        assert not ({m["name"] for m in parked[key]}
+                    & {m["name"] for m in BENCH[key]})
+        for m in parked[key]:
+            assert set(m.get("workloads", names)) <= names
+    assert {c["name"] for c in BENCH["configs"]} >= {
+        w["config"] for w in parked["workloads"]}
